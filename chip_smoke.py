@@ -1,33 +1,54 @@
 """Run the PyTorch/CUDA port on one GPU and check it end to end.
 
     python3 chip_smoke.py                # all phases (one card)
-    python3 chip_smoke.py --kernels-only # build + kernel checks only
-    python3 chip_smoke.py --trace        # all phases + a profiler trace
+    python3 chip_smoke.py --kernels-only # build + both kernel phases only
+    python3 chip_smoke.py --trace        # all phases + profiler traces of
+                                         # one validation and one LM forward
 
 Phases, each printing one JSON line:
 
   1. device   — ``nvidia-smi`` name and power limit, the torch device name,
-                and the nvcc build of the kernels from ``src/repro_torch/csrc``.
+                and the nvcc builds of the kernels from ``src/repro_torch/csrc``
+                (one nvcc per source, started together).
   2. kernels  — every topk_mips kernel (f32, bf16, int8) at the main path's
                 shapes (Q=256 queries, D=768, a chunk of N=1024 rows, k=100
                 and 1000, a ragged chunk, the engine carry) plus edge shapes,
                 held against its plain PyTorch version on the card, and timed
                 with CUDA events beside the plain version and a library
                 yardstick (``torch.topk(q @ c.T)``, which the port never calls).
-  3. encoder  — the full-width dr-bert-base trunk on the card against the same
+  3. flash    — the flash-attention kernel (f32, bf16) at the LM path's shape
+                (B=4, H=14, KV=2, S=T=2048, d=64, causal, on the trunk's
+                strided views) and the reference's kernel-test cases, held
+                against its plain version on the card, and timed beside it and
+                ``scaled_dot_product_attention`` (the yardstick only).
+  4. encoder  — the full-width dr-bert-base trunk on the card against the same
                 trunk on the CPU, in f32, on a few sequences.
-  4. main     — the validator CLI (``repro_torch.core.cli.main``) on two
+  5. main     — the validator CLI (``repro_torch.core.cli.main``) on two
                 seeded random full-width dr-bert-base checkpoints over a
                 synthetic corpus of 8192 passages, for ``--impl cuda`` at
                 f32, bf16 and int8 and ``--impl torch`` at f32: empty errors,
                 one ledger row per step with the reference's keys, one kernel
                 launch per corpus chunk and checkpoint, and equal f32 metrics
                 between the two impls.
+  6. lm       — full-width qwen2-0.5b (24 layers, random weights from a seed):
+                (a) ``lm_loss`` and ``forward`` on 4 x 2048 tokens with
+                ``attn_impl`` "cuda" (24 flash launches per forward) and
+                "torch" (none), at f32 and bf16, against each other; each
+                entry point's first call is checked and counted, the next
+                five are timed (CUDA events: median, least, most);
+                (b) the card against the CPU at 2 layers, S=256, f32;
+                (c) ``lm_demo.serve_batch`` (prefill + greedy decode, batch 4,
+                prompt 128, gen 16): no flash launch, prefill's logits equal
+                the no-cache flash forward's, tokens/s (median of three calls
+                after a warm-up).
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
-line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-script exits non-zero before that line.  It needs a CUDA device and the
-checkout's ``src/`` beside it; scratch files go to ``build/chip_smoke/``.
+Kernel launches are counted only while a path runs (the main path for
+topk_mips, the LM phase's ``lm_loss`` for flash attention), with every count
+set to 0 just before it.  Then a ``{"kernels": [...]}`` line, the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits non-zero before that line.  It
+needs a CUDA device and the checkout's ``src/`` beside it; scratch files go
+to ``build/chip_smoke/``.
 """
 
 from __future__ import annotations
@@ -36,6 +57,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -54,6 +76,15 @@ REPLACES = {"f32": "src/repro/kernels/topk_mips/kernel.py:135",
             "bf16": "src/repro/kernels/topk_mips/kernel.py:135",
             "int8": "src/repro/kernels/topk_mips/kernel.py:176"}
 SOURCE = "src/repro_torch/csrc/topk_mips.cu"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:85"
+# kernel vs plain on the card.  f32: sums in another order, |delta| <= abs.
+# bf16: the kernel rounds its f32 result once, so it lies within half a bf16
+# ulp (2**-8 of the value) of the plain version's f32 result before the
+# cast, plus abs for the f32 sums in another order: elementwise
+# |kernel - plain_f32| <= rel * |plain_f32| + abs
+FLASH_TOL = {"f32": {"abs": 1e-4}, "bf16": {"rel": 2.0 ** -8, "abs": 1e-5}}
+TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 LEDGER_KEYS = {"step", "task", "metrics", "timings", "subset_size", "engine",
                "score_dtype"}
 TOL = 1e-5
@@ -156,6 +187,7 @@ def library_call(dt, qk, ck, qs, cs, k):
 
 def kernel_phase(device):
     from repro_torch.kernels.topk_mips import ops, ref
+    t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -230,12 +262,155 @@ def kernel_phase(device):
                 if k == 100 and n_valid == N:
                     rows[dt] = row
     emit({"phase": "kernels", "ok": True,
-          "checked_launches": dict(ops.launches)})
+          "checked_launches": dict(ops.launches),
+          "seconds": time.perf_counter() - t_phase})
     return rows
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the full-width encoder on the card against the CPU
+# phase 3: flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+# the LM path's shape: qwen2-0.5b heads, batch 4 x 2048 tokens, causal
+FLASH_PATH = (4, 14, 2, 2048, 2048, 64, True)
+# the cases of tests/test_kernels.py (flash_attention_matches_ref)
+FLASH_CASES = [(2, 4, 2, 64, 64, 32, True), (1, 8, 8, 33, 57, 64, False),
+               (2, 2, 1, 128, 256, 128, True), (1, 14, 2, 40, 40, 64, True)]
+
+
+def flash_bound_ms(dt, B, H, KV, S, T, d, causal, t_valid):
+    """Least time for the work: each input read once and the output written
+    once, against the operations on the pairs the mask leaves.  q . k of
+    bf16 values may run on bf16 tensor cores (exact products); p . v keeps
+    f32 p, so it runs at the f32 rate, as does everything at f32."""
+    nbytes = (2 * B * H * S * d + 2 * B * KV * T * d) * ELEM_BYTES[dt]
+    if causal:
+        pairs = sum(min(i + 1, t_valid) for i in range(S))
+    else:
+        pairs = S * t_valid
+    flop = 2 * B * H * pairs * d
+    t_ops = flop / PEAK_OPS_S[dt] + flop / PEAK_OPS_S["f32"]
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def flash_compare(name, got, q, k, v, **kw):
+    """The kernel's output ``got`` against the plain version on the same
+    inputs, within ``FLASH_TOL``.  Returns max |kernel - plain| (the plain
+    version in q's dtype) and, at bf16, the largest excess of
+    |kernel - plain_f32| over half a bf16 ulp (None at f32)."""
+    from repro_torch.kernels.flash_attention import ref
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+          f"{want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    if not got.numel():
+        return 0.0, None
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.float32:
+        tol = FLASH_TOL["f32"]["abs"]
+        check(err <= tol, f"{name}: max |kernel - plain| {err:.3g} > {tol}")
+        return err, None
+    tol = FLASH_TOL["bf16"]
+    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    excess = float(((got.float() - want32).abs()
+                    - tol["rel"] * want32.abs()).max())
+    check(excess <= tol["abs"], f"{name}: |kernel - plain_f32| exceeds "
+          f"{tol['rel']:.3g} * |plain_f32| by {excess:.3g} > {tol['abs']}")
+    return err, excess
+
+
+def flash_kernel_phase(device):
+    from repro_torch.kernels.flash_attention import ops, ref
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cpu").manual_seed(1)
+
+    def rand(*shape, dt="f32"):
+        return torch.randn(*shape, generator=gen).to(device, TORCH_DT[dt])
+
+    def inputs(B, H, KV, S, T, d, dt):
+        return rand(B, H, S, d, dt=dt), rand(B, KV, T, d, dt=dt), \
+            rand(B, KV, T, d, dt=dt)
+
+    rows = {}
+    rng = np.random.default_rng(2)
+    # property-style random shapes, as tests/test_kernels.py draws them
+    drawn = []
+    for _ in range(12):
+        B, H = int(rng.integers(1, 4)), int(rng.integers(1, 5))
+        S, T = int(rng.integers(1, 65)), int(rng.integers(1, 65))
+        causal = bool(rng.integers(0, 2))
+        drawn.append((B, H, H, S, max(S, T) if causal else T,
+                      int(rng.choice([8, 16, 32, 64])), causal))
+    for dt in ("f32", "bf16"):
+        errs, excesses = [], []
+
+        def gate(name, got, q, k, v, **kw):
+            err, excess = flash_compare(f"flash {dt} {name}", got, q, k, v,
+                                        **kw)
+            errs.append(err)
+            excesses.append(excess)
+            return err
+
+        for (B, H, KV, S, T, d, causal) in FLASH_CASES + drawn:
+            q, k, v = inputs(B, H, KV, S, T, d, dt)
+            gate((B, H, KV, S, T, d, causal),
+                 ops.flash_attention(q, k, v, causal=causal), q, k, v,
+                 causal=causal)
+        # t_valid < T: garbage past it changes nothing
+        q, k, v = inputs(1, 2, 2, 16, 64, 32, dt)
+        o1 = ops.flash_attention(q, k, v, t_valid=40)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, 40:], v2[:, :, 40:] = 1e3, -1e3
+        o2 = ops.flash_attention(q, k2, v2, t_valid=40)
+        check(torch.equal(o1, o2), f"flash {dt}: keys past t_valid leak")
+        gate("t_valid", o1, q, k, v, causal=False, t_valid=40)
+
+        # the LM path: transposed views of (B, S, H, d), as the trunk passes
+        B, H, KV, S, T, d, causal = FLASH_PATH
+        q = rand(B, S, H, d, dt=dt).transpose(1, 2)
+        k = rand(B, T, KV, d, dt=dt).transpose(1, 2)
+        v = rand(B, T, KV, d, dt=dt).transpose(1, 2)
+
+        def kernel():
+            return ops.flash_attention(q, k, v, causal=causal)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, causal=causal)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+
+        got = kernel()
+        check(got.stride() == q.stride(), f"flash {dt}: output strides "
+              f"{got.stride()} differ from q's {q.stride()}")
+        err = gate("path", got, q, k, v, causal=causal)
+        lib_err = float((library().float() - got.float()).abs().max())
+        ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain, iters=5)
+        library_ms = cuda_time_ms(library)
+        bound_ms, bound_by = flash_bound_ms(dt, B, H, KV, S, T, d, causal, T)
+        row = {"phase": "flash", "variant": dt, "B": B, "H": H, "KV": KV,
+               "S": S, "T": T, "d": d, "causal": causal,
+               "max_abs_err": err, "tolerance": FLASH_TOL[dt],
+               "worst_edge_err": max(errs),
+               "worst_excess_over_half_ulp": None if dt == "f32"
+               else max(excesses),
+               "library_max_abs_diff": lib_err,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        rows[dt] = row
+    emit({"phase": "flash", "ok": True,
+          "checked_launches": dict(ops.launches),
+          "seconds": time.perf_counter() - t_phase})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the full-width encoder on the card against the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -265,7 +440,7 @@ def encoder_phase(device):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the validator CLI on full-width checkpoints
+# phase 5: the validator CLI on full-width checkpoints
 # ---------------------------------------------------------------------------
 
 
@@ -274,7 +449,6 @@ def main_phase(device):
     from repro_torch.configs import dr_bert_base
     from repro_torch.core import cli
     from repro_torch.data import corpus as corpus_lib
-    from repro_torch.kernels.topk_mips import ops
     from repro_torch.models import transformer as tfm
 
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -304,7 +478,7 @@ def main_phase(device):
     for impl, dt in (("cuda", "f32"), ("cuda", "bf16"), ("cuda", "int8"),
                      ("torch", "f32")):
         out = os.path.join(work, f"out_{impl}_{dt}")
-        ops.reset_launches()
+        reset_all_launches()
         t0 = time.perf_counter()
         rc = cli.main([
             "--query_file", os.path.join(work, "q.jsonl"),
@@ -316,7 +490,7 @@ def main_phase(device):
             "--impl", impl, "--score_dtype", dt, "--chunk_size", str(chunk),
             "--batch_size", "256", "--output_dir", out])
         seconds = time.perf_counter() - t0
-        counts = dict(ops.launches)
+        counts = all_launches()
         check(rc == 0, f"cli {impl}/{dt} returned {rc} (validation errors)")
         with open(os.path.join(out, "asyncval_ledger.jsonl")) as f:
             rows = [json.loads(line) for line in f if line.strip()]
@@ -331,12 +505,12 @@ def main_phase(device):
                   f"{impl}/{dt}: metrics {r['metrics']}")
         want = {key: 0 for key in counts}
         if impl == "cuda":
-            want[dt] = n_chunks * len(steps)
+            want[f"topk_mips_{dt}"] = n_chunks * len(steps)
         check(counts == want, f"{impl}/{dt}: kernel launches {counts}, "
               f"expected {want}")
         results[(impl, dt)] = rows
         if impl == "cuda":
-            measured[dt] = counts[dt]
+            measured[dt] = counts[f"topk_mips_{dt}"]
         emit({"phase": "main", "impl": impl, "score_dtype": dt,
               "launches": counts, "seconds": seconds,
               "metrics": {r["step"]: r["metrics"] for r in rows},
@@ -349,14 +523,263 @@ def main_phase(device):
     return measured
 
 
-def trace_phase():
-    """One ``--impl cuda --score_dtype bf16`` validation of one checkpoint
-    under ``torch.profiler``.  From the exported Chrome trace: device time
-    by kernel, the topk_mips kernels' share, and the device's busy time
-    (union of kernel, memcpy and memset intervals) against the wall time of
-    the CLI call, which includes the restore from disk."""
-    from torch.profiler import ProfilerActivity, profile
+# ---------------------------------------------------------------------------
+# phase 6: the dense LM family at full width
+# ---------------------------------------------------------------------------
 
+# gates of the LM phase: "cuda" (flash kernel, f32 p) against "torch" (the
+# chunked path, p cast to the compute dtype) on the card; the card against
+# the CPU; prefill (cached, chunked path) against the no-cache flash forward
+LM_GATES = {"loss": {"f32": 1e-4, "bf16": 2e-2},
+            "hidden_err": {"f32": 2e-3}, "hidden_cos": {"bf16": 0.99},
+            "cpu_hidden_err": 2e-3, "cpu_loss": 1e-4, "prefill_logits": 1e-3}
+# timed calls of each LM entry point after its first (warm-up) call
+LM_REPEATS = 5
+
+
+def reset_all_launches():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.topk_mips import ops as topk_ops
+    flash_ops.reset_launches()
+    topk_ops.reset_launches()
+
+
+def all_launches():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.topk_mips import ops as topk_ops
+    return {**{f"topk_mips_{k}": n for k, n in topk_ops.launches.items()},
+            **{f"flash_attention_{k}": n
+               for k, n in flash_ops.launches.items()}}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def call_times_ms(fn, n: int = LM_REPEATS) -> dict:
+    """``n`` calls of ``fn`` (already warmed up by the caller), each timed
+    between two CUDA events on the current stream: host issue and device
+    work until the call's last kernel ends.  Median, least and most."""
+    ms = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms),
+            "n": n}
+
+
+def row_cosine(a, b) -> float:
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)))
+                 .min())
+
+
+def lm_phase(device, trace: bool = False):
+    import dataclasses
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import qwen2_0_5b
+    from repro_torch.launch import lm_demo
+    from repro_torch.models import transformer as tfm
+    t_phase = time.perf_counter()
+    full = qwen2_0_5b.full_config()
+    t0 = time.perf_counter()
+    tree = tfm.init_numpy(full, 13)
+    params = tfm.params_from_numpy(tree, device)
+    torch.cuda.synchronize()
+    n_params = sum(a.size for _, a in ckpt.flatten(tree))
+    emit({"phase": "lm", "setup": "params", "config": full.name,
+          "n_params": n_params, "seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(13)
+    B, S = 4, 2048
+    tokens = torch.from_numpy(rng.integers(1, full.vocab_size, (B, S))
+                              .astype(np.int32)).to(device)
+
+    # (a) lm_loss and forward, flash kernel against the chunked path
+    measured = {}
+    for dt in ("f32", "bf16"):
+        out = {}
+        for impl in ("cuda", "torch"):
+            cfg = dataclasses.replace(full, compute_dtype=TORCH_DT[dt],
+                                      attn_impl=impl)
+            with torch.inference_mode():
+                # each entry point's first call is counted and checked; it
+                # warms the config up for the timed calls after it
+                reset_all_launches()
+                loss, aux = tfm.lm_loss(params, cfg, {"tokens": tokens})
+                loss_launches = all_launches()
+                loss_ms = call_times_ms(
+                    lambda: tfm.lm_loss(params, cfg, {"tokens": tokens}))
+                reset_all_launches()
+                hidden, _, _ = tfm.forward(params, cfg, tokens)
+                fwd_launches = all_launches()
+                fwd_ms = call_times_ms(
+                    lambda: tfm.forward(params, cfg, tokens))
+            want = {key: 0 for key in loss_launches}
+            if impl == "cuda":
+                want[f"flash_attention_{dt}"] = full.n_layers
+            check(loss_launches == want and fwd_launches == want,
+                  f"lm {dt}/{impl}: launches {loss_launches} (lm_loss), "
+                  f"{fwd_launches} (forward), expected {want}")
+            check(hidden.shape == (B, S, full.d_model)
+                  and bool(torch.isfinite(hidden).all())
+                  and math.isfinite(float(loss)),
+                  f"lm {dt}/{impl}: non-finite loss or hidden")
+            if impl == "cuda":
+                measured[dt] = loss_launches[f"flash_attention_{dt}"]
+            out[impl] = {"loss": float(loss), "hidden": hidden,
+                         "lm_loss_ms": loss_ms, "forward_ms": fwd_ms,
+                         "launches": loss_launches}
+        a, b = out["cuda"], out["torch"]
+        loss_diff = abs(a["loss"] - b["loss"])
+        err = float((a["hidden"].float() - b["hidden"].float()).abs().max())
+        cos = row_cosine(a["hidden"], b["hidden"])
+        check(loss_diff <= LM_GATES["loss"][dt],
+              f"lm {dt}: loss cuda {a['loss']} vs torch {b['loss']}")
+        if dt == "f32":
+            check(err <= LM_GATES["hidden_err"][dt],
+                  f"lm {dt}: hidden differs by {err:.3g}")
+        else:
+            check(cos >= LM_GATES["hidden_cos"][dt],
+                  f"lm {dt}: hidden row cosine {cos}")
+        emit({"phase": "lm", "part": "a", "compute_dtype": dt, "B": B,
+              "S": S, "loss_cuda": a["loss"], "loss_torch": b["loss"],
+              "loss_diff": loss_diff, "loss_gate": LM_GATES["loss"][dt],
+              "hidden_max_abs_err": err, "hidden_min_row_cos": cos,
+              "hidden_gate": LM_GATES["hidden_err"].get(dt,
+                                                         LM_GATES["hidden_cos"]
+                                                         .get(dt)),
+              "ms": {impl: {"lm_loss": out[impl]["lm_loss_ms"],
+                            "forward": out[impl]["forward_ms"]}
+                     for impl in out},
+              "launches": {impl: out[impl]["launches"] for impl in out}})
+        del out, a, b
+    if trace:
+        cfg = dataclasses.replace(full, attn_impl="cuda")
+        with torch.inference_mode():
+            emit(traced("lm_forward_bf16",
+                        lambda: tfm.forward(params, cfg, tokens),
+                        ("flash_fwd",)))
+
+    # (b) the card against the CPU: full width, 2 layers, S=256, f32
+    cfg2 = dataclasses.replace(full, n_layers=2, compute_dtype=torch.float32,
+                               attn_impl="cuda")
+    tree2 = dict(tree, dense_layers={
+        key: {k: v[:2] for k, v in sub.items()}
+        for key, sub in tree["dense_layers"].items()})
+    toks2 = tokens[:2, :256]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu_params = tfm.params_from_numpy(tree2)
+        cpu_h = tfm.forward(cpu_params, cfg2, toks2.cpu())[0]
+        cpu_loss = float(tfm.lm_loss(cpu_params, cfg2,
+                                     {"tokens": toks2.cpu()})[0])
+        gpu_params = tfm.params_from_numpy(tree2, device)
+        gpu_h = tfm.forward(gpu_params, cfg2, toks2)[0].cpu()
+        gpu_loss = float(tfm.lm_loss(gpu_params, cfg2, {"tokens": toks2})[0])
+    err = float((gpu_h - cpu_h).abs().max())
+    check(err <= LM_GATES["cpu_hidden_err"] and
+          abs(gpu_loss - cpu_loss) <= LM_GATES["cpu_loss"],
+          f"lm card vs CPU: hidden {err:.3g}, loss {gpu_loss} vs {cpu_loss}")
+    emit({"phase": "lm", "part": "b", "layers": 2, "S": 256,
+          "hidden_max_abs_err": err, "gate": LM_GATES["cpu_hidden_err"],
+          "loss_card": gpu_loss, "loss_cpu": cpu_loss,
+          "seconds": time.perf_counter() - t0})
+    del cpu_params, gpu_params
+
+    # (c) serve_batch: prefill + greedy decode through the cached path
+    P, G = 128, 16
+    prompts = tokens[:, :P].contiguous()
+    cfg = dataclasses.replace(full, attn_impl="cuda")
+    lm_demo.serve_batch(params, cfg, prompts, G)              # warm-up
+    reset_all_launches()
+    serve_s = []
+    for _ in range(3):
+        gen, seconds = timed(
+            lambda: lm_demo.serve_batch(params, cfg, prompts, G))
+        serve_s.append(seconds)
+    serve_launches = all_launches()
+    check(all(n == 0 for n in serve_launches.values()),
+          f"serve_batch launched kernels: {serve_launches}")
+    check(gen.shape == (B, G) and gen.dtype == torch.int32
+          and bool(((gen >= 0) & (gen < full.vocab_size)).all()),
+          f"serve_batch returned {tuple(gen.shape)} {gen.dtype}")
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    with torch.inference_mode():
+        pre, _ = tfm.prefill(params, cfg32, prompts, max_len=P + G)
+        hid = tfm.forward(params, cfg32, prompts)[0]
+        nocache = tfm.logits(params, cfg32, hid[:, -1:])
+    err = float((pre - nocache).abs().max())
+    check(err <= LM_GATES["prefill_logits"],
+          f"prefill logits differ from the no-cache flash forward by "
+          f"{err:.3g}")
+    emit({"phase": "lm", "part": "c", "batch": B, "prompt": P, "gen": G,
+          "launches": serve_launches, "seconds": serve_s,
+          "tokens_per_s": B * G / statistics.median(serve_s),
+          "tokens_per_s_min_max": [B * G / max(serve_s), B * G / min(serve_s)],
+          "prefill_vs_flash_logits_max_abs_err": err,
+          "gate": LM_GATES["prefill_logits"],
+          "sample": gen[0].tolist()})
+    emit({"phase": "lm", "ok": True,
+          "seconds": time.perf_counter() - t_phase})
+    return measured
+
+
+def traced(name, fn, kernels):
+    """Run ``fn`` once under ``torch.profiler``.  From the exported Chrome
+    trace: device time by kernel, the time of the kernels whose names
+    contain one of ``kernels``, and the device's busy time (union of
+    kernel, memcpy and memset intervals) against the wall time of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = os.path.join(ROOT, "build", "chip_smoke", f"trace_{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(bool(dev), f"the {name} trace holds no device activity")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo = busy + hi - lo, s
+        hi = max(hi, e)
+    busy += hi - lo
+    by_name: dict = {}
+    for e in dev:
+        key = e["name"][:90]
+        tot, n = by_name.get(key, (0.0, 0))
+        by_name[key] = (tot + e["dur"], n + 1)
+    ours_us = sum(e["dur"] for e in dev
+                  if any(k in e["name"] for k in kernels))
+    return {"phase": "trace", "path": name, "wall_s": wall,
+            "device_busy_s": busy / 1e6,
+            "device_span_s": (spans[-1][1] - spans[0][0]) / 1e6,
+            "idle_share_of_wall": 1 - busy / 1e6 / wall,
+            "kernels": list(kernels), "kernels_ms": ours_us / 1e3,
+            "top": [{"name": n, "device_ms": t / 1e3, "count": c}
+                    for n, (t, c) in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1][0])[:12]]}
+
+
+def trace_phase():
+    """One ``--impl cuda --score_dtype bf16`` validation of one checkpoint,
+    traced; its wall time includes the restore from disk."""
     from repro_torch.core import cli
     work = os.path.join(ROOT, "build", "chip_smoke")
     args = ["--query_file", os.path.join(work, "q.jsonl"),
@@ -367,39 +790,33 @@ def trace_phase():
             "--score_dtype", "bf16", "--chunk_size", "1024",
             "--batch_size", "256", "--max_num_valid", "1",
             "--output_dir", os.path.join(work, "out_trace")]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        check(cli.main(args) == 0, "traced cli run failed")
-        wall = time.perf_counter() - t0
-    path = os.path.join(work, "trace_bf16.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    check(bool(dev), "the trace holds no device activity")
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
-    busy, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy, lo = busy + hi - lo, s
-        hi = max(hi, e)
-    busy += hi - lo
-    by_name: dict = {}
-    for e in dev:
-        name = e["name"][:90]
-        tot, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (tot + e["dur"], n + 1)
-    mips_us = sum(e["dur"] for e in dev if "mips_tile_topk" in e["name"]
-                  or "merge_topk" in e["name"])
-    emit({"phase": "trace", "wall_s": wall, "device_busy_s": busy / 1e6,
-          "device_span_s": (spans[-1][1] - spans[0][0]) / 1e6,
-          "idle_share_of_wall": 1 - busy / 1e6 / wall,
-          "topk_mips_ms": mips_us / 1e3,
-          "top": [{"name": n, "device_ms": t / 1e3, "count": c}
-                  for n, (t, c) in sorted(by_name.items(),
-                                          key=lambda kv: -kv[1][0])[:12]]})
+    emit(traced("validate_bf16",
+                lambda: check(cli.main(args) == 0, "traced cli run failed"),
+                ("mips_tile_topk", "merge_topk")))
+
+
+def build_kernels():
+    """Build every kernel library, one nvcc per source, all started
+    together; return the device phase's build record."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.topk_mips import ops as topk_ops
+    t0 = time.perf_counter()
+    build.load_libraries({**topk_ops.LIBRARY, **flash_ops.LIBRARY})
+    return {"build_s": time.perf_counter() - t0,
+            "nvcc_s": {name: info["seconds"]
+                       for name, info in build.BUILD_INFO.items()},
+            "ptxas": {name: [ln for ln in info["log"].splitlines()
+                             if "registers" in ln or "spill" in ln]
+                      for name, info in build.BUILD_INFO.items()}}
+
+
+def kernel_row(name, source, replaces, launches, row):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
 
 def main(argv=None) -> int:
@@ -409,32 +826,27 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda:0")
     smi = nvidia_smi()
-    from repro_torch.kernels import build
-    from repro_torch.kernels.topk_mips import ops
-    t0 = time.perf_counter()
-    ops._lib()
-    info = build.BUILD_INFO["topk_mips"]
     emit({"phase": "device", "nvidia_smi": smi,
           "torch_device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": time.perf_counter() - t0, "nvcc_s": info["seconds"],
-          "ptxas": [ln for ln in info["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          **build_kernels()})
     rows = kernel_phase(device)
-    # launches come only from the main path's run; without it, none
+    flash_rows = flash_kernel_phase(device)
+    # launches come only from the paths' runs; without them, none
     launches = {dt: None for dt in rows}
+    flash_launches = {dt: None for dt in flash_rows}
     if "--kernels-only" not in argv:
         encoder_phase(device)
         launches = main_phase(device)
         if "--trace" in argv:
             trace_phase()
+        flash_launches = lm_phase(device, trace="--trace" in argv)
     emit({"kernels": [
-        {"name": f"topk_mips_{dt}", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[dt], "launches": launches[dt],
-         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        for dt, row in rows.items()]})
+        kernel_row(f"topk_mips_{dt}", SOURCE, REPLACES[dt], launches[dt],
+                   row) for dt, row in rows.items()] + [
+        kernel_row(f"flash_attention_{dt}", FLASH_SOURCE, FLASH_REPLACES,
+                   flash_launches[dt], row)
+        for dt, row in flash_rows.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

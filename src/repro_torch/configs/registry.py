@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> config + family metadata.
 
-Holds only the architectures the port runs so far (the paper's dr-bert-base
-bi-encoder); the JAX package's LM, recsys and GNN architectures wait for
-the slices that port those families.
+Holds only the architectures the port runs so far: the paper's
+dr-bert-base bi-encoder and the dense LMs (qwen2-0.5b, qwen2-72b,
+deepseek-67b).  The JAX package's MoE/MLA LMs, recsys and GNN
+architectures wait for the slices that port those families.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ import importlib
 from typing import Any, Callable, Dict
 
 _ARCH_MODULES = {
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
     "dr-bert-base": "repro_torch.configs.dr_bert_base",
 }
 
@@ -37,6 +41,15 @@ def get(arch_id: str) -> ArchSpec:
                     smoke_config=mod.smoke_config, shapes=dict(mod.SHAPES),
                     module=mod)
 
+
+# Shape tables shared within each family -----------------------------------
+
+LM_SHAPES = {
+    "train_4k": {"kind": "train", "seq_len": 4096, "global_batch": 256},
+    "prefill_32k": {"kind": "prefill", "seq_len": 32768, "global_batch": 32},
+    "decode_32k": {"kind": "decode", "seq_len": 32768, "global_batch": 128},
+    "long_500k": {"kind": "decode", "seq_len": 524288, "global_batch": 1},
+}
 
 # The paper's own validation workload shapes (encode corpus / retrieve):
 BIENCODER_SHAPES = {

@@ -8,8 +8,8 @@ unchanged one is reused.  The library has a plain C interface and is loaded
 with :mod:`ctypes`; nothing here includes PyTorch's headers, which keeps a
 build to seconds.
 
-Nothing is compiled when this module is imported: :func:`load_library` is
-called by a kernel wrapper the first time it launches on a CUDA tensor.
+Nothing is compiled when this module is imported: :func:`load_libraries`
+is called by a kernel wrapper the first time it launches on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -47,44 +47,58 @@ def _nvcc() -> str:
     return path
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile ``sources`` (file names under ``csrc/``) into ``lib<name>.so``
-    unless a build of the same sources and flags exists, then load it.
+def _target(name: str, sources: Sequence[str]):
+    """(library path, log path, source paths) of a build of ``sources``."""
+    paths = [os.path.join(CSRC, s) for s in sources]
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    out_dir = os.path.abspath(os.path.join(BUILD_ROOT, h.hexdigest()[:16]))
+    return (os.path.join(out_dir, f"lib{name}.so"),
+            os.path.join(out_dir, f"lib{name}.log"), paths)
 
-    Raises ``RuntimeError`` with nvcc's output when nvcc is missing or the
+
+def load_libraries(specs: Dict[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
+    """Compile each library of ``specs`` (name -> file names under
+    ``csrc/``) into ``lib<name>.so`` unless a build of the same sources and
+    flags exists, then load them all.  The builds run as one nvcc process
+    per library, all started together.
+
+    Raises ``RuntimeError`` with nvcc's output when nvcc is missing or a
     build fails."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        paths = [os.path.join(CSRC, s) for s in sources]
-        h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-        for p in paths:
-            with open(p, "rb") as f:
-                h.update(f.read())
-        out_dir = os.path.abspath(os.path.join(BUILD_ROOT,
-                                               h.hexdigest()[:16]))
-        so = os.path.join(out_dir, f"lib{name}.so")
-        log_path = os.path.join(out_dir, f"lib{name}.log")
-        seconds = 0.0
-        if not os.path.exists(so):
-            os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, *paths]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
+        todo = {name: _target(name, sources)
+                for name, sources in specs.items() if name not in _LIBS}
+        builds = {}
+        for name, (so, _, paths) in todo.items():
+            if not os.path.exists(so):
+                os.makedirs(os.path.dirname(so), exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, *paths]
+                builds[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), tmp, time.perf_counter())
+        seconds, failed = {}, []
+        for name, (proc, tmp, t0) in builds.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            so, log_path, _ = todo[name]
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building lib{name}.so:"
-                    f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                failed.append(f"nvcc failed ({proc.returncode}) building "
+                              f"lib{name}.so:\n{' '.join(proc.args)}\n{log}")
+                continue
             with open(log_path, "w") as f:
-                f.write(proc.stderr)
+                f.write(log)
             os.replace(tmp, so)            # atomic: a reader never sees half
-        log = ""
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                log = f.read()
-        BUILD_INFO[name] = {"seconds": seconds, "log": log, "path": so}
-        lib = _LIBS[name] = ctypes.CDLL(so)
-        return lib
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, (so, log_path, _) in todo.items():
+            log = ""
+            if os.path.exists(log_path):
+                with open(log_path) as f:
+                    log = f.read()
+            BUILD_INFO[name] = {"seconds": seconds.get(name, 0.0), "log": log,
+                                "path": so}
+            _LIBS[name] = ctypes.CDLL(so)
+        return {name: _LIBS[name] for name in specs}

@@ -48,9 +48,13 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
+#: the kernel's library: name -> sources under ``csrc/``
+LIBRARY = {"topk_mips": ["topk_mips.cu"]}
+
+
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels.build import load_library
-    lib = load_library("topk_mips", ["topk_mips.cu"])
+    from repro_torch.kernels.build import load_libraries
+    lib = load_libraries(LIBRARY)["topk_mips"]
     if not getattr(lib, "_repro_typed", False):
         lib.topk_mips_f32.argtypes = _FLOAT_ARGS
         lib.topk_mips_bf16.argtypes = _FLOAT_ARGS

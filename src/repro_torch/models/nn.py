@@ -1,9 +1,10 @@
-"""The functional layers the BERT trunk uses, on plain tensors.
+"""The functional layers of the transformer trunks, on plain tensors.
 
 Parameters are nested dicts of tensors with the JAX package's key names
 (``repro/models/nn.py``), so a checkpoint of either package maps onto the
 same tree.  Each function keeps the reference's dtype rules: weights are
-cast to the compute dtype before the product, and layer norm runs in f32.
+cast to the compute dtype before the product, and the norms and rotary
+embeddings run in f32 and cast back.
 """
 
 from __future__ import annotations
@@ -65,3 +66,43 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU with the tanh approximation (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm computed in f32 and cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,), f32, on the CPU.
+
+    The exponent is an f32 ``arange`` divided by ``head_dim`` and the result
+    is ``1 / theta ** e`` in f32, as the reference computes it.  The power
+    is rounded once to f32 from f64: that gives XLA's f32 ``pow`` bit for
+    bit at every (head_dim, theta) of the configs, where torch's f32 ``pow``
+    is one ulp off at (128, 1e6) — and an ulp of ``inv_freq`` moves the
+    angle at position 2047 by ~2e-4 rad.  Computed on the CPU so every
+    device uses the same values."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    return 1.0 / (theta ** exponent.double()).float()
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding of x (..., seq, n_heads, head_dim) at ``positions``
+    (broadcastable to (..., seq)).  Dimension d pairs with d + head_dim/2
+    (the "rotate_half" convention); angles and products in f32."""
+    inv_freq = rope_frequencies(x.shape[-1], theta).to(x.device)
+    angles = positions[..., None].float() * inv_freq       # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., None, :]             # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -113,6 +113,8 @@ def test_init_numpy_matches_param_shapes():
 
 
 def test_lm_configs_are_not_yet_ported():
+    """The dense LM family is ported; MoE and MLA configs still raise."""
     _, tc = _configs("smoke", "f32")
-    with pytest.raises(NotImplementedError):
-        ttfm.param_shapes(dataclasses.replace(tc, use_rope=True))
+    for change in ({"moe_num_experts": 4}, {"mla": True}):
+        with pytest.raises(NotImplementedError):
+            ttfm.param_shapes(dataclasses.replace(tc, **change))
