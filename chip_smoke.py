@@ -1,9 +1,10 @@
 """Run the PyTorch/CUDA port on one GPU and check it end to end.
 
     python3 chip_smoke.py                # all phases (one card)
-    python3 chip_smoke.py --kernels-only # build + both kernel phases only
+    python3 chip_smoke.py --kernels-only # build + the kernel phases only
     python3 chip_smoke.py --trace        # all phases + profiler traces of
-                                         # one validation and one LM forward
+                                         # one validation, one LM forward
+                                         # and one decode_32k decode step
 
 Phases, each printing one JSON line:
 
@@ -21,6 +22,16 @@ Phases, each printing one JSON line:
                 strided views) and the reference's kernel-test cases, held
                 against its plain version on the card, and timed beside it and
                 ``scaled_dot_product_attention`` (the yardstick only).
+  3b. decode  — the decode-attention kernel (f32, bf16) against its plain
+                version on the card at the serve path's shape (B=4, KV=2, G=7,
+                d=64, cache 144, lengths 128 and 143), one qwen2-0.5b layer
+                at decode_32k (B=128, 32768 keys) and at long_500k (B=1,
+                524288 keys, and a 32768-key prefix of that capacity), the
+                qwen2-72b geometry (B=8, KV=8, G=8, d=128, 32768 keys), the
+                reference's kernel-test cases and 12 random small shapes, on
+                the trunk's transposed cache views; garbage past length must
+                change nothing; timed beside the plain version and
+                ``scaled_dot_product_attention`` over the valid prefix.
   4. encoder  — the full-width dr-bert-base trunk on the card against the same
                 trunk on the CPU, in f32, on a few sequences.
   5. main     — the validator CLI (``repro_torch.core.cli.main``) on two
@@ -38,14 +49,25 @@ Phases, each printing one JSON line:
                 five are timed (CUDA events: median, least, most);
                 (b) the card against the CPU at 2 layers, S=256, f32;
                 (c) ``lm_demo.serve_batch`` (prefill + greedy decode, batch 4,
-                prompt 128, gen 16): no flash launch, prefill's logits equal
-                the no-cache flash forward's, tokens/s (median of three calls
-                after a warm-up).
+                prompt 128, gen 16) for both impls: under "cuda" 24 decode
+                launches per decode step and no flash launch, tokens/s
+                (median of three calls after a warm-up); at f32 equal greedy
+                tokens, teacher-forced decode-step logits of the two impls
+                and the last step against the no-cache flash forward within
+                1e-3, prefill against the flash forward within 1e-3;
+                (d) one bf16 ``decode_step`` at decode_32k (batch 128, a
+                32768-token cache of seeded random K/V at a real prefill's
+                scale) for both impls: 24 decode launches, logits row cosine,
+                step time (CUDA events, five warm steps), peak memory;
+                (e) the same step on qwen2-72b at full width, 2 of its 80
+                layers, batch 16, a 32768-token cache.
 
 Kernel launches are counted only while a path runs (the main path for
-topk_mips, the LM phase's ``lm_loss`` for flash attention), with every count
-set to 0 just before it.  Then a ``{"kernels": [...]}`` line, the
-``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
+topk_mips, the LM phase's ``lm_loss`` for flash attention, its
+``serve_batch`` calls for decode attention: the three timed bf16 calls and
+the f32 one), with every count set to 0 just before it.  Then a
+``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
+``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero before that line.  It
 needs a CUDA device and the checkout's ``src/`` beside it; scratch files go
 to ``build/chip_smoke/``.
@@ -78,12 +100,15 @@ REPLACES = {"f32": "src/repro/kernels/topk_mips/kernel.py:135",
 SOURCE = "src/repro_torch/csrc/topk_mips.cu"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:85"
-# kernel vs plain on the card.  f32: sums in another order, |delta| <= abs.
+DECODE_SOURCE = "src/repro_torch/csrc/decode_attention.cu"
+DECODE_REPLACES = "src/repro/kernels/decode_attention/kernel.py:78"
+# attention kernels (flash, decode) vs plain on the card.  f32: sums in
+# another order, |delta| <= abs.
 # bf16: the kernel rounds its f32 result once, so it lies within half a bf16
 # ulp (2**-8 of the value) of the plain version's f32 result before the
 # cast, plus abs for the f32 sums in another order: elementwise
 # |kernel - plain_f32| <= rel * |plain_f32| + abs
-FLASH_TOL = {"f32": {"abs": 1e-4}, "bf16": {"rel": 2.0 ** -8, "abs": 1e-5}}
+ATTN_TOL = {"f32": {"abs": 1e-4}, "bf16": {"rel": 2.0 ** -8, "abs": 1e-5}}
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 LEDGER_KEYS = {"step", "task", "metrics", "timings", "subset_size", "engine",
                "score_dtype"}
@@ -295,13 +320,14 @@ def flash_bound_ms(dt, B, H, KV, S, T, d, causal, t_valid):
                                         else "operations")
 
 
-def flash_compare(name, got, q, k, v, **kw):
-    """The kernel's output ``got`` against the plain version on the same
-    inputs, within ``FLASH_TOL``.  Returns max |kernel - plain| (the plain
-    version in q's dtype) and, at bf16, the largest excess of
-    |kernel - plain_f32| over half a bf16 ulp (None at f32)."""
-    from repro_torch.kernels.flash_attention import ref
-    want = ref.flash_attention_ref(q, k, v, **kw)
+def plain_compare(name, got, plain, *inputs):
+    """A kernel's output ``got`` against ``plain(*inputs)``, its plain
+    version on the same inputs, within ``ATTN_TOL``.  Returns max |kernel
+    - plain| (the plain version in the inputs' dtype) and, at bf16, the
+    largest excess of |kernel - plain_f32| over half a bf16 ulp, where
+    plain_f32 is the plain version on the inputs widened to f32 (None at
+    f32)."""
+    want = plain(*inputs)
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
           f"{want.dtype}")
@@ -310,11 +336,11 @@ def flash_compare(name, got, q, k, v, **kw):
         return 0.0, None
     err = float((got.float() - want.float()).abs().max())
     if got.dtype == torch.float32:
-        tol = FLASH_TOL["f32"]["abs"]
+        tol = ATTN_TOL["f32"]["abs"]
         check(err <= tol, f"{name}: max |kernel - plain| {err:.3g} > {tol}")
         return err, None
-    tol = FLASH_TOL["bf16"]
-    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    tol = ATTN_TOL["bf16"]
+    want32 = plain(*(x.float() for x in inputs))
     excess = float(((got.float() - want32).abs()
                     - tol["rel"] * want32.abs()).max())
     check(excess <= tol["abs"], f"{name}: |kernel - plain_f32| exceeds "
@@ -348,8 +374,9 @@ def flash_kernel_phase(device):
         errs, excesses = [], []
 
         def gate(name, got, q, k, v, **kw):
-            err, excess = flash_compare(f"flash {dt} {name}", got, q, k, v,
-                                        **kw)
+            err, excess = plain_compare(
+                f"flash {dt} {name}", got,
+                lambda *x: ref.flash_attention_ref(*x, **kw), q, k, v)
             errs.append(err)
             excesses.append(excess)
             return err
@@ -394,7 +421,7 @@ def flash_kernel_phase(device):
         bound_ms, bound_by = flash_bound_ms(dt, B, H, KV, S, T, d, causal, T)
         row = {"phase": "flash", "variant": dt, "B": B, "H": H, "KV": KV,
                "S": S, "T": T, "d": d, "causal": causal,
-               "max_abs_err": err, "tolerance": FLASH_TOL[dt],
+               "max_abs_err": err, "tolerance": ATTN_TOL[dt],
                "worst_edge_err": max(errs),
                "worst_excess_over_half_ulp": None if dt == "f32"
                else max(excesses),
@@ -404,6 +431,138 @@ def flash_kernel_phase(device):
         emit(row)
         rows[dt] = row
     emit({"phase": "flash", "ok": True,
+          "checked_launches": dict(ops.launches),
+          "seconds": time.perf_counter() - t_phase})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: decode attention against its plain version
+# ---------------------------------------------------------------------------
+
+# (name, B, KV, G, d, T capacity, length): the serve path (qwen2-0.5b heads,
+# batch 4, prompt 128 + gen 16), one layer of qwen2-0.5b at decode_32k and
+# at long_500k (full, and the kernel docstring's 32k prefix), and the
+# qwen2-72b / deepseek-67b attention geometry; all read the trunk's
+# transposed (B, T, KV, d) cache views
+DECODE_SHAPES = [("serve", 4, 2, 7, 64, 144, 128),
+                 ("serve", 4, 2, 7, 64, 144, 143),
+                 ("decode_32k", 128, 2, 7, 64, 32768, 32768),
+                 ("long_500k", 1, 2, 7, 64, 524288, 524288),
+                 ("long_500k_prefix_32k", 1, 2, 7, 64, 524288, 32768),
+                 ("qwen2_72b", 8, 8, 8, 128, 32768, 32768)]
+# the shape of the kernels line: the decode_32k layer
+DECODE_MAIN = "decode_32k"
+# the cases of tests/test_kernels.py (decode_attention_matches_ref):
+# (B, KV, G, T, d, length)
+DECODE_CASES = [(2, 2, 4, 256, 64, 100), (1, 8, 1, 512, 128, 512),
+                (3, 1, 7, 300, 32, 1), (1, 8, 8, 1024, 128, 700)]
+
+
+def decode_bound_ms(dt, B, KV, G, d, length):
+    """Least time for the work: q, the valid K and V prefix and the output
+    once, against 2 * B * KV * G * length * d FLOP for each product (q . k
+    of bf16 values on bf16 tensor cores, p . v with f32 p at the f32
+    rate, as for flash attention)."""
+    nbytes = (2 * B * KV * G * d + 2 * B * KV * length * d) * ELEM_BYTES[dt]
+    flop = 2 * B * KV * G * length * d
+    t_ops = flop / PEAK_OPS_S[dt] + flop / PEAK_OPS_S["f32"]
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def decode_kernel_phase(device):
+    from repro_torch.kernels.decode_attention import ops, ref
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def rand(*shape, dt="f32"):
+        return torch.randn(*shape, generator=gen, device=device,
+                           dtype=TORCH_DT[dt])
+
+    def cache_views(B, KV, T, d, dt):
+        """k, v as the trunk passes them: (B, T, KV, d) -> (B, KV, T, d)."""
+        return (rand(B, T, KV, d, dt=dt).transpose(1, 2),
+                rand(B, T, KV, d, dt=dt).transpose(1, 2))
+
+    rng = np.random.default_rng(4)
+    drawn = []
+    for _ in range(12):
+        T = int(rng.integers(1, 300))
+        drawn.append((int(rng.integers(1, 4)), int(rng.integers(1, 5)),
+                      int(rng.integers(1, 17)), T,
+                      int(rng.choice(ops.HEAD_DIMS)),
+                      int(rng.integers(1, T + 1))))
+    rows = {}
+    for dt in ("f32", "bf16"):
+        errs, excesses = [], []
+
+        def gate(name, got, length, q, k, v):
+            err, excess = plain_compare(
+                f"decode {dt} {name}", got,
+                lambda *x: ref.decode_attention_ref(length, *x), q, k, v)
+            errs.append(err)
+            excesses.append(excess)
+            return err, excess
+
+        for (B, KV, G, T, d, L) in DECODE_CASES + drawn:
+            q = rand(B, KV, G, d, dt=dt)
+            k, v = rand(B, KV, T, d, dt=dt), rand(B, KV, T, d, dt=dt)
+            gate((B, KV, G, T, d, L), ops.decode_attention(q, k, v, L),
+                 L, q, k, v)
+            k, v = cache_views(B, KV, T, d, dt)
+            gate((B, KV, G, T, d, L, "views"),
+                 ops.decode_attention(q, k, v, L), L, q, k, v)
+
+        for (name, B, KV, G, d, T, L) in DECODE_SHAPES:
+            q = rand(B, KV, G, d, dt=dt)
+            k, v = cache_views(B, KV, T, d, dt)
+
+            def kernel():
+                return ops.decode_attention(q, k, v, L)
+
+            def plain():
+                return ref.decode_attention_ref(L, q, k, v)
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q.reshape(B, KV * G, 1, d), k[:, :, :L], v[:, :, :L],
+                    enable_gqa=True)
+
+            got = kernel()
+            err, excess = gate(name, got, L, q, k, v)
+            if L < T:
+                # garbage past length changes nothing, bit for bit
+                k2, v2 = k.clone(), v.clone()
+                k2[:, :, L:], v2[:, :, L:] = 1e4, -1e4
+                check(torch.equal(ops.decode_attention(q, k2, v2, L), got),
+                      f"decode {dt} {name}: keys past length leak")
+                del k2, v2
+            lib_err = float((library().reshape(got.shape).float()
+                             - got.float()).abs().max())
+            ms = cuda_time_ms(kernel)
+            plain_ms = cuda_time_ms(plain, iters=5)
+            library_ms = cuda_time_ms(library)
+            bound_ms, bound_by = decode_bound_ms(dt, B, KV, G, d, L)
+            row = {"phase": "decode", "variant": dt, "shape": name, "B": B,
+                   "KV": KV, "G": G, "d": d, "T": T, "length": L,
+                   "max_abs_err": err, "tolerance": ATTN_TOL[dt],
+                   "excess_over_half_ulp": excess,
+                   "library_max_abs_diff": lib_err,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_share": bound_ms / ms}
+            emit(row)
+            if name == DECODE_MAIN:
+                rows[dt] = row
+            del q, k, v, got
+            torch.cuda.empty_cache()
+        emit({"phase": "decode", "variant": dt, "checked": len(errs),
+              "worst_err": max(errs),
+              "worst_excess_over_half_ulp": None if dt == "f32"
+              else max(excesses)})
+    emit({"phase": "decode", "ok": True,
           "checked_launches": dict(ops.launches),
           "seconds": time.perf_counter() - t_phase})
     return rows
@@ -532,24 +691,35 @@ def main_phase(device):
 # the CPU; prefill (cached, chunked path) against the no-cache flash forward
 LM_GATES = {"loss": {"f32": 1e-4, "bf16": 2e-2},
             "hidden_err": {"f32": 2e-3}, "hidden_cos": {"bf16": 0.99},
-            "cpu_hidden_err": 2e-3, "cpu_loss": 1e-4, "prefill_logits": 1e-3}
+            "cpu_hidden_err": 2e-3, "cpu_loss": 1e-4, "prefill_logits": 1e-3,
+            "decode_logits": 1e-3}
+# the decode_step parts: qwen2-0.5b at decode_32k (its published batch and
+# cache), and qwen2-72b at full width with 2 of its 80 layers, batch 16
+DECODE_32K = {"batch": 128, "cache": 32768}
+QWEN72_DECODE = {"batch": 16, "cache": 32768}
+QWEN72_LAYERS = 2
 # timed calls of each LM entry point after its first (warm-up) call
 LM_REPEATS = 5
 
 
 def reset_all_launches():
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.topk_mips import ops as topk_ops
+    decode_ops.reset_launches()
     flash_ops.reset_launches()
     topk_ops.reset_launches()
 
 
 def all_launches():
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.topk_mips import ops as topk_ops
     return {**{f"topk_mips_{k}": n for k, n in topk_ops.launches.items()},
             **{f"flash_attention_{k}": n
-               for k, n in flash_ops.launches.items()}}
+               for k, n in flash_ops.launches.items()},
+            **{f"decode_attention_{k}": n
+               for k, n in decode_ops.launches.items()}}
 
 
 def timed(fn):
@@ -696,42 +866,211 @@ def lm_phase(device, trace: bool = False):
           "seconds": time.perf_counter() - t0})
     del cpu_params, gpu_params
 
-    # (c) serve_batch: prefill + greedy decode through the cached path
+    # (c) serve_batch: prefill (chunked path) + greedy decode, whose steps
+    # go through the decode kernel under "cuda"
     P, G = 128, 16
     prompts = tokens[:, :P].contiguous()
-    cfg = dataclasses.replace(full, attn_impl="cuda")
-    lm_demo.serve_batch(params, cfg, prompts, G)              # warm-up
+    per_call = full.n_layers * (G - 1)
+    serve = {}
+    for impl in ("cuda", "torch"):
+        cfg = dataclasses.replace(full, attn_impl=impl)
+        lm_demo.serve_batch(params, cfg, prompts, G)          # warm-up
+        reset_all_launches()
+        serve_s = []
+        for _ in range(3):
+            gen, seconds = timed(
+                lambda: lm_demo.serve_batch(params, cfg, prompts, G))
+            serve_s.append(seconds)
+        serve_launches = all_launches()
+        want = {key: 0 for key in serve_launches}
+        if impl == "cuda":
+            want["decode_attention_bf16"] = 3 * per_call
+            measured["decode_bf16"] = serve_launches["decode_attention_bf16"]
+        check(serve_launches == want, f"serve_batch {impl}: launches "
+              f"{serve_launches}, expected {want}")
+        check(gen.shape == (B, G) and gen.dtype == torch.int32
+              and bool(((gen >= 0) & (gen < full.vocab_size)).all()),
+              f"serve_batch returned {tuple(gen.shape)} {gen.dtype}")
+        serve[impl] = {"seconds": serve_s,
+                       "tokens_per_s": B * G / statistics.median(serve_s),
+                       "tokens_per_s_min_max": [B * G / max(serve_s),
+                                                B * G / min(serve_s)],
+                       "launches_per_call": {k: n // 3 for k, n in
+                                             serve_launches.items() if n},
+                       "sample": gen[0].tolist()}
+    # at f32: equal greedy tokens, teacher-forced decode logits of the two
+    # impls, and the kernel's last step against the no-cache flash forward
+    cfg32 = {impl: dataclasses.replace(full, attn_impl=impl,
+                                       compute_dtype=torch.float32)
+             for impl in ("cuda", "torch")}
     reset_all_launches()
-    serve_s = []
-    for _ in range(3):
-        gen, seconds = timed(
-            lambda: lm_demo.serve_batch(params, cfg, prompts, G))
-        serve_s.append(seconds)
-    serve_launches = all_launches()
-    check(all(n == 0 for n in serve_launches.values()),
-          f"serve_batch launched kernels: {serve_launches}")
-    check(gen.shape == (B, G) and gen.dtype == torch.int32
-          and bool(((gen >= 0) & (gen < full.vocab_size)).all()),
-          f"serve_batch returned {tuple(gen.shape)} {gen.dtype}")
-    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    gen32 = lm_demo.serve_batch(params, cfg32["cuda"], prompts, G)
+    f32_launches = all_launches()
+    check(f32_launches["decode_attention_f32"] == per_call,
+          f"f32 serve_batch: launches {f32_launches}, expected {per_call} "
+          "decode_attention_f32")
+    measured["decode_f32"] = f32_launches["decode_attention_f32"]
+    gen32_torch = lm_demo.serve_batch(params, cfg32["torch"], prompts, G)
+    check(torch.equal(gen32, gen32_torch), "f32 serve_batch tokens differ "
+          f"between impls: {gen32[0].tolist()} vs {gen32_torch[0].tolist()}")
+    step_err = 0.0
     with torch.inference_mode():
-        pre, _ = tfm.prefill(params, cfg32, prompts, max_len=P + G)
-        hid = tfm.forward(params, cfg32, prompts)[0]
-        nocache = tfm.logits(params, cfg32, hid[:, -1:])
-    err = float((pre - nocache).abs().max())
-    check(err <= LM_GATES["prefill_logits"],
+        caches = {impl: tfm.prefill(params, cfg32[impl], prompts,
+                                    max_len=P + G)[1] for impl in cfg32}
+        for i in range(G - 1):
+            tok = gen32[:, i:i + 1]
+            lg = {impl: tfm.decode_step(params, cfg32[impl], caches[impl],
+                                        tok, P + i)[0] for impl in cfg32}
+            step_err = max(step_err, float((lg["cuda"] - lg["torch"])
+                                           .abs().max()))
+        seq = torch.cat([prompts, gen32[:, :G - 1]], dim=1)
+        hid = tfm.forward(params, cfg32["cuda"], seq)[0]
+        nocache = tfm.logits(params, cfg32["cuda"], hid[:, -1:])
+        flash_err = float((lg["cuda"] - nocache).abs().max())
+        pre, _ = tfm.prefill(params, cfg32["cuda"], prompts, max_len=P + G)
+        hid = tfm.forward(params, cfg32["cuda"], prompts)[0]
+        pre_err = float((pre - tfm.logits(params, cfg32["cuda"],
+                                          hid[:, -1:])).abs().max())
+    del caches
+    gate = LM_GATES["decode_logits"]
+    check(step_err <= gate, f"f32 decode-step logits differ between impls "
+          f"by {step_err:.3g}")
+    check(flash_err <= gate, f"f32 last decode-step logits differ from the "
+          f"no-cache flash forward by {flash_err:.3g}")
+    check(pre_err <= LM_GATES["prefill_logits"],
           f"prefill logits differ from the no-cache flash forward by "
-          f"{err:.3g}")
+          f"{pre_err:.3g}")
     emit({"phase": "lm", "part": "c", "batch": B, "prompt": P, "gen": G,
-          "launches": serve_launches, "seconds": serve_s,
-          "tokens_per_s": B * G / statistics.median(serve_s),
-          "tokens_per_s_min_max": [B * G / max(serve_s), B * G / min(serve_s)],
-          "prefill_vs_flash_logits_max_abs_err": err,
-          "gate": LM_GATES["prefill_logits"],
-          "sample": gen[0].tolist()})
+          "serve": serve, "f32_decode_launches": per_call,
+          "f32_tokens_equal": True,
+          "f32_step_logits_max_abs_err": step_err,
+          "f32_last_step_vs_flash_logits_max_abs_err": flash_err,
+          "prefill_vs_flash_logits_max_abs_err": pre_err,
+          "gates": {"decode_logits": gate,
+                    "prefill_logits": LM_GATES["prefill_logits"]}})
+
+    # (d) one decode_step of full-width qwen2-0.5b at decode_32k
+    del tokens
+    decode_step_part("d", device, params, full, DECODE_32K, trace=trace)
+    del params
+    torch.cuda.empty_cache()
+    # (e) the same step on qwen2-72b at full width, depth cut to 2 layers
+    from repro_torch.configs import qwen2_72b
+    cfg72 = dataclasses.replace(qwen2_72b.full_config(),
+                                n_layers=QWEN72_LAYERS)
+    t0 = time.perf_counter()
+    params72 = device_params(cfg72, 72, device)
+    emit({"phase": "lm", "setup": "params", "config": cfg72.name,
+          "layers": cfg72.n_layers, "of_layers":
+          qwen2_72b.full_config().n_layers,
+          "n_params": sum(t.numel() for _, t in ckpt.flatten(params72)),
+          "seconds": time.perf_counter() - t0})
+    decode_step_part("e", device, params72, cfg72, QWEN72_DECODE)
+    del params72
+    torch.cuda.empty_cache()
     emit({"phase": "lm", "ok": True,
           "seconds": time.perf_counter() - t_phase})
     return measured
+
+
+def device_params(cfg, seed: int, device):
+    """Random parameters made on the card from a seed, with the scheme of
+    ``transformer.init_numpy`` (norm scales 1, biases 0, tables N(0, 0.02),
+    weights N(0, 1/fan_in)): the 17 GB of a 2-layer qwen2-72b are made in a
+    second instead of a minute of host sampling and upload."""
+    from repro_torch.models import transformer as tfm
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def build(node, name):
+        if isinstance(node, dict):
+            return {key: build(node[key], key) for key in sorted(node)}
+        if name == "scale":
+            return torch.ones(node, device=device)
+        if name in ("bias", "b", "bq", "bk", "bv"):
+            return torch.zeros(node, device=device)
+        std = 0.02 if name == "table" else 1.0 / math.sqrt(node[-2])
+        return torch.randn(node, generator=gen, device=device).mul_(std)
+
+    return build(tfm.param_shapes(cfg), "")
+
+
+def decode_step_part(part, device, params, full, shape, trace=False):
+    """One bf16 ``decode_step`` at index T - 1 of a cache of capacity T
+    filled with seeded random K/V at the per-(layer, head, dim) mean and
+    spread of a short real prefill's, for ``attn_impl`` "cuda" (decode
+    kernel) and "torch" (chunked path): first step checked and counted,
+    five warm steps timed (CUDA events), logits compared by row cosine."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    B, T = shape["batch"], shape["cache"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(full, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(17)
+    prompt = torch.from_numpy(rng.integers(1, full.vocab_size, (4, 64))
+                              .astype(np.int32)).to(device)
+    with torch.inference_mode():
+        _, real = tfm.prefill(params, cfg, prompt)
+    caches = tfm.init_cache(cfg, B, T, dtype=torch.bfloat16, device=device)
+    gen = torch.Generator(device=device).manual_seed(18)
+    for key in ("k", "v"):
+        for i in range(full.n_layers):
+            ref = real["dense"][key][i].float()          # (4, 64, KV, d)
+            mean, std = ref.mean(dim=(0, 1)), ref.std(dim=(0, 1))
+            layer = caches["dense"][key][i]
+            for b0 in range(0, B, 8):                    # bf16 rows
+                rows = torch.randn(layer[b0:b0 + 8].shape, generator=gen,
+                                   device=device)
+                layer[b0:b0 + 8] = (rows * std + mean).to(torch.bfloat16)
+    del real, rows
+    token = torch.from_numpy(rng.integers(1, full.vocab_size, (B, 1))
+                             .astype(np.int32)).to(device)
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in caches["dense"].values()) / 1e9
+    setup_s = time.perf_counter() - t0
+    out, times, peaks, counts = {}, {}, {}, {}
+    for impl in ("cuda", "torch"):
+        icfg = dataclasses.replace(cfg, attn_impl=impl)
+
+        def step():
+            return tfm.decode_step(params, icfg, caches, token, T - 1)[0]
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            reset_all_launches()
+            out[impl] = step()
+            counts[impl] = all_launches()
+            times[impl] = call_times_ms(step)
+        peaks[impl] = torch.cuda.max_memory_allocated() / 1e9
+        want = {key: 0 for key in counts[impl]}
+        if impl == "cuda":
+            want["decode_attention_bf16"] = full.n_layers
+        check(counts[impl] == want, f"lm {part} {impl}: launches "
+              f"{counts[impl]}, expected {want}")
+        check(out[impl].shape == (B, 1, full.vocab_size)
+              and bool(torch.isfinite(out[impl]).all()),
+              f"lm {part} {impl}: logits {tuple(out[impl].shape)} not finite")
+    cos = row_cosine(out["cuda"], out["torch"])
+    err = float((out["cuda"].float() - out["torch"].float()).abs().max())
+    check(cos >= LM_GATES["hidden_cos"]["bf16"],
+          f"lm {part}: decode logits row cosine {cos}")
+    emit({"phase": "lm", "part": part, "config": full.name,
+          "layers": full.n_layers, "batch": B, "cache": T,
+          "index": T - 1, "cache_gb": cache_gb, "setup_s": setup_s,
+          "logits_min_row_cos": cos, "logits_max_abs_diff": err,
+          "gate": LM_GATES["hidden_cos"]["bf16"], "step_ms": times,
+          "peak_gb": peaks, "launches": counts})
+    if trace:
+        icfg = dataclasses.replace(cfg, attn_impl="cuda")
+        with torch.inference_mode():
+            emit(traced(f"lm_decode_step_{part}",
+                        lambda: tfm.decode_step(params, icfg, caches, token,
+                                                T - 1),
+                        ("decode_split", "decode_merge")))
+    del caches, out
+    torch.cuda.empty_cache()
 
 
 def traced(name, fn, kernels):
@@ -799,10 +1138,12 @@ def build_kernels():
     """Build every kernel library, one nvcc per source, all started
     together; return the device phase's build record."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.topk_mips import ops as topk_ops
     t0 = time.perf_counter()
-    build.load_libraries({**topk_ops.LIBRARY, **flash_ops.LIBRARY})
+    build.load_libraries({**topk_ops.LIBRARY, **flash_ops.LIBRARY,
+                          **decode_ops.LIBRARY})
     return {"build_s": time.perf_counter() - t0,
             "nvcc_s": {name: info["seconds"]
                        for name, info in build.BUILD_INFO.items()},
@@ -832,21 +1173,29 @@ def main(argv=None) -> int:
           **build_kernels()})
     rows = kernel_phase(device)
     flash_rows = flash_kernel_phase(device)
+    decode_rows = decode_kernel_phase(device)
     # launches come only from the paths' runs; without them, none
     launches = {dt: None for dt in rows}
     flash_launches = {dt: None for dt in flash_rows}
+    decode_launches = {dt: None for dt in decode_rows}
     if "--kernels-only" not in argv:
         encoder_phase(device)
         launches = main_phase(device)
         if "--trace" in argv:
             trace_phase()
-        flash_launches = lm_phase(device, trace="--trace" in argv)
+        lm_launches = lm_phase(device, trace="--trace" in argv)
+        flash_launches = {dt: lm_launches[dt] for dt in flash_rows}
+        decode_launches = {dt: lm_launches[f"decode_{dt}"]
+                           for dt in decode_rows}
     emit({"kernels": [
         kernel_row(f"topk_mips_{dt}", SOURCE, REPLACES[dt], launches[dt],
                    row) for dt, row in rows.items()] + [
         kernel_row(f"flash_attention_{dt}", FLASH_SOURCE, FLASH_REPLACES,
                    flash_launches[dt], row)
-        for dt, row in flash_rows.items()]})
+        for dt, row in flash_rows.items()] + [
+        kernel_row(f"decode_attention_{dt}", DECODE_SOURCE, DECODE_REPLACES,
+                   decode_launches[dt], row)
+        for dt, row in decode_rows.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,11 @@
 port of ``repro/launch/lm_demo.py``.
 
 Runs an LM config's smoke size on one device: prefills the caches with the
-prompts, then decodes greedily.  ``serve_batch`` runs at any size; the
-cached path never reaches the flash-attention kernel, as in the reference.
+prompts, then decodes greedily.  ``serve_batch`` runs at any size.  Prefill
+takes the chunked attention path, as in the reference; with
+``attn_impl="cuda"`` each decode step runs the decode-attention kernel once
+per layer (24 launches per step for qwen2-0.5b, 24 x (gen - 1) per
+``serve_batch`` call) and the flash-attention kernel never.
 
 This is a transformer-stack demo, not the retrieval serving tier.
 

@@ -25,7 +25,13 @@ trees and checkpoints load without renaming (:func:`params_from_numpy`).
 
 Attention follows the reference's dispatch.  With ``attn_impl="cuda"`` (the
 reference's ``"pallas"``), no KV cache and no key mask, it goes to the
-flash-attention kernel (``kernels/flash_attention``).  Everything else goes
+flash-attention kernel (``kernels/flash_attention``).  With ``"cuda"``, a KV
+cache, one query token and no caller's key mask (the decode step), it goes
+to the decode-attention kernel (``kernels/decode_attention``) over the
+cache's valid prefix ``[0, cache_index + 1)``: the call site that the
+reference's comment names for its decode kernel, computing what the
+reference's ``decode_step`` computes, with p kept in f32 as in the kernel.
+Everything else (prefill, masked calls, ``"torch"``) goes
 to :func:`_chunked_attention`, the reference's XLA path: query chunks of
 ``q_chunk`` rows, compute-dtype operands multiplied into f32 sums, masked
 keys at ``-1e30``, softmax in f32, the probabilities cast to the value
@@ -46,6 +52,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import nn
 
@@ -77,7 +84,7 @@ class TransformerConfig:
     compute_dtype: Any = torch.bfloat16
     q_chunk: int = 512                  # attention query-chunk size
     vocab_chunk: int = 0                # 0 = full logits; >0 = chunked xent
-    attn_impl: str = "torch"            # torch | cuda (flash kernel)
+    attn_impl: str = "torch"            # torch | cuda (flash, decode kernels)
 
 
 def _check(cfg: TransformerConfig) -> None:
@@ -225,6 +232,9 @@ def _attention(p, x, cfg: TransformerConfig, *, positions, cache=None,
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)
 
+    # the cached single-token step without a caller's mask: decode kernel
+    decode = cfg.attn_impl == "cuda" and cache is not None and S == 1 \
+        and kv_mask is None
     q_offset = 0
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
@@ -239,7 +249,14 @@ def _attention(p, x, cfg: TransformerConfig, *, positions, cache=None,
     else:
         k_all, v_all = k, v
 
-    if cfg.attn_impl == "cuda" and cache is None and kv_mask is None:
+    if decode:
+        # query head h = kv * G + g reads KV head h // G, as the reshape
+        # puts it; keys t <= cache_index are the written prefix
+        o = decode_attention(q.reshape(B, KV, H // KV, hd),
+                             k_all.transpose(1, 2), v_all.transpose(1, 2),
+                             cache_index + 1)
+        out = o.reshape(B, S, H * hd)
+    elif cfg.attn_impl == "cuda" and cache is None and kv_mask is None:
         o = flash_attention(q.transpose(1, 2), k_all.transpose(1, 2),
                             v_all.transpose(1, 2), causal=cfg.causal)
         out = o.transpose(1, 2)

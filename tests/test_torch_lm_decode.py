@@ -113,8 +113,9 @@ def test_lm_demo_main_asks_for_the_card(monkeypatch):
 
 
 def test_cached_path_launches_no_flash_kernel(monkeypatch):
-    """attn_impl="cuda" sends only cache-free, mask-free calls to the
-    kernel: prefill and decode take the chunked path on any device."""
+    """attn_impl="cuda" sends only cache-free, mask-free calls to the flash
+    kernel: prefill takes the chunked path and each decode step the decode
+    kernel (``tests/test_torch_decode_path.py``), on any device."""
     _, tc = _configs("qwen2-72b")
     tc = dataclasses.replace(tc, attn_impl="cuda")
     params = tfm.params_from_numpy(tfm.init_numpy(tc, 0))
