@@ -10,7 +10,11 @@ Phases, each printing one JSON line:
 
   1. device   — ``nvidia-smi`` name and power limit, the torch device name,
                 and the nvcc builds of the kernels from ``src/repro_torch/csrc``
-                (one nvcc per source, started together).
+                (one nvcc per source, started together); then a
+                ``flash_build`` line: each flash instantiation's ptxas
+                registers and spill bytes and its count of ``HGMMA``
+                (tensor-core) instructions from ``cuobjdump -sass`` (every
+                bf16 instantiation must have some and spill nothing).
   2. kernels  — every topk_mips kernel (f32, bf16, int8) at the main path's
                 shapes (Q=256 queries, D=768, a chunk of N=1024 rows, k=100
                 and 1000, a ragged chunk, the engine carry) plus edge shapes,
@@ -19,8 +23,10 @@ Phases, each printing one JSON line:
                 yardstick (``torch.topk(q @ c.T)``, which the port never calls).
   3. flash    — the flash-attention kernel (f32, bf16) at the LM path's shape
                 (B=4, H=14, KV=2, S=T=2048, d=64, causal, on the trunk's
-                strided views) and the reference's kernel-test cases, held
-                against its plain version on the card, and timed beside it and
+                strided views) and, at bf16, the qwen2-72b head geometry
+                (B=1, H=64, KV=8, S=T=2048, d=128), plus the reference's
+                kernel-test cases, held against its plain version on the
+                card, and timed beside it and
                 ``scaled_dot_product_attention`` (the yardstick only).
   3b. decode  — the decode-attention kernel (f32, bf16) against its plain
                 version on the card at the serve path's shape (B=4, KV=2, G=7,
@@ -298,6 +304,8 @@ def kernel_phase(device):
 
 # the LM path's shape: qwen2-0.5b heads, batch 4 x 2048 tokens, causal
 FLASH_PATH = (4, 14, 2, 2048, 2048, 64, True)
+# a second timed bf16 row: qwen2-72b heads (d=128), one sequence of 2048
+FLASH_D128 = (1, 64, 8, 2048, 2048, 128, True)
 # the cases of tests/test_kernels.py (flash_attention_matches_ref)
 FLASH_CASES = [(2, 4, 2, 64, 64, 32, True), (1, 8, 8, 33, 57, 64, False),
                (2, 2, 1, 128, 256, 128, True), (1, 14, 2, 40, 40, 64, True)]
@@ -305,16 +313,17 @@ FLASH_CASES = [(2, 4, 2, 64, 64, 32, True), (1, 8, 8, 33, 57, 64, False),
 
 def flash_bound_ms(dt, B, H, KV, S, T, d, causal, t_valid):
     """Least time for the work: each input read once and the output written
-    once, against the operations on the pairs the mask leaves.  q . k of
-    bf16 values may run on bf16 tensor cores (exact products); p . v keeps
-    f32 p, so it runs at the f32 rate, as does everything at f32."""
+    once, against the operations on the pairs the mask leaves.  At bf16 the
+    kernel's arithmetic is three bf16 tensor-core products of 2 * pairs * d
+    FLOP per head (q . k, p_hi . v, p_lo . v: p split in two bf16 halves so
+    it keeps f32 precision); at f32 two products at the f32 rate."""
     nbytes = (2 * B * H * S * d + 2 * B * KV * T * d) * ELEM_BYTES[dt]
     if causal:
         pairs = sum(min(i + 1, t_valid) for i in range(S))
     else:
         pairs = S * t_valid
     flop = 2 * B * H * pairs * d
-    t_ops = flop / PEAK_OPS_S[dt] + flop / PEAK_OPS_S["f32"]
+    t_ops = (3 if dt == "bf16" else 2) * flop / PEAK_OPS_S[dt]
     t_bytes = nbytes / HBM_BYTES_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
@@ -395,41 +404,47 @@ def flash_kernel_phase(device):
         check(torch.equal(o1, o2), f"flash {dt}: keys past t_valid leak")
         gate("t_valid", o1, q, k, v, causal=False, t_valid=40)
 
-        # the LM path: transposed views of (B, S, H, d), as the trunk passes
-        B, H, KV, S, T, d, causal = FLASH_PATH
-        q = rand(B, S, H, d, dt=dt).transpose(1, 2)
-        k = rand(B, T, KV, d, dt=dt).transpose(1, 2)
-        v = rand(B, T, KV, d, dt=dt).transpose(1, 2)
+        # the LM path (and at bf16 the d=128 row): transposed views of
+        # (B, S, H, d), as the trunk passes them
+        for name, shape in [("path", FLASH_PATH)] + (
+                [("qwen2_72b_heads", FLASH_D128)] if dt == "bf16" else []):
+            B, H, KV, S, T, d, causal = shape
+            q = rand(B, S, H, d, dt=dt).transpose(1, 2)
+            k = rand(B, T, KV, d, dt=dt).transpose(1, 2)
+            v = rand(B, T, KV, d, dt=dt).transpose(1, 2)
 
-        def kernel():
-            return ops.flash_attention(q, k, v, causal=causal)
+            def kernel():
+                return ops.flash_attention(q, k, v, causal=causal)
 
-        def plain():
-            return ref.flash_attention_ref(q, k, v, causal=causal)
+            def plain():
+                return ref.flash_attention_ref(q, k, v, causal=causal)
 
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True)
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
 
-        got = kernel()
-        check(got.stride() == q.stride(), f"flash {dt}: output strides "
-              f"{got.stride()} differ from q's {q.stride()}")
-        err = gate("path", got, q, k, v, causal=causal)
-        lib_err = float((library().float() - got.float()).abs().max())
-        ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain, iters=5)
-        library_ms = cuda_time_ms(library)
-        bound_ms, bound_by = flash_bound_ms(dt, B, H, KV, S, T, d, causal, T)
-        row = {"phase": "flash", "variant": dt, "B": B, "H": H, "KV": KV,
-               "S": S, "T": T, "d": d, "causal": causal,
-               "max_abs_err": err, "tolerance": ATTN_TOL[dt],
-               "worst_edge_err": max(errs),
-               "worst_excess_over_half_ulp": None if dt == "f32"
-               else max(excesses),
-               "library_max_abs_diff": lib_err,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        emit(row)
-        rows[dt] = row
+            got = kernel()
+            check(got.stride() == q.stride(), f"flash {dt}: output strides "
+                  f"{got.stride()} differ from q's {q.stride()}")
+            err = gate(name, got, q, k, v, causal=causal)
+            lib_err = float((library().float() - got.float()).abs().max())
+            ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain, iters=5)
+            library_ms = cuda_time_ms(library)
+            bound_ms, bound_by = flash_bound_ms(dt, B, H, KV, S, T, d,
+                                                causal, T)
+            row = {"phase": "flash", "variant": dt, "shape": name, "B": B,
+                   "H": H, "KV": KV, "S": S, "T": T, "d": d,
+                   "causal": causal, "max_abs_err": err,
+                   "tolerance": ATTN_TOL[dt], "worst_edge_err": max(errs),
+                   "worst_excess_over_half_ulp": None if dt == "f32"
+                   else max(excesses),
+                   "library_max_abs_diff": lib_err,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            emit(row)
+            if name == "path":
+                rows[dt] = row
+            del q, k, v, got
     emit({"phase": "flash", "ok": True,
           "checked_launches": dict(ops.launches),
           "seconds": time.perf_counter() - t_phase})
@@ -463,7 +478,7 @@ def decode_bound_ms(dt, B, KV, G, d, length):
     """Least time for the work: q, the valid K and V prefix and the output
     once, against 2 * B * KV * G * length * d FLOP for each product (q . k
     of bf16 values on bf16 tensor cores, p . v with f32 p at the f32
-    rate, as for flash attention)."""
+    rate: the decode kernel keeps p in f32)."""
     nbytes = (2 * B * KV * G * d + 2 * B * KV * length * d) * ELEM_BYTES[dt]
     flop = 2 * B * KV * G * length * d
     t_ops = flop / PEAK_OPS_S[dt] + flop / PEAK_OPS_S["f32"]
@@ -686,7 +701,7 @@ def main_phase(device):
 # phase 6: the dense LM family at full width
 # ---------------------------------------------------------------------------
 
-# gates of the LM phase: "cuda" (flash kernel, f32 p) against "torch" (the
+# gates of the LM phase: "cuda" (flash kernel, split p) against "torch" (the
 # chunked path, p cast to the compute dtype) on the card; the card against
 # the CPU; prefill (cached, chunked path) against the no-cache flash forward
 LM_GATES = {"loss": {"f32": 1e-4, "bf16": 2e-2},
@@ -1152,6 +1167,52 @@ def build_kernels():
                       for name, info in build.BUILD_INFO.items()}}
 
 
+def flash_instantiations():
+    """Each flash instantiation's ptxas registers and spill bytes, and the
+    count of ``HGMMA`` (wgmma) instructions in its SASS from ``cuobjdump
+    -sass`` of the built library (None without cuobjdump).  Every bf16
+    instantiation must run on tensor cores and spill nothing."""
+    import re
+
+    from repro_torch.kernels import build
+    info = build.BUILD_INFO["flash_attention"]
+    name_of = re.compile(r"flash_fwd_(bf16|f32)ILi(\d+)E")
+    out, cur = {}, None
+    for ln in info["log"].splitlines():
+        m = name_of.search(ln)
+        if m and "Compiling entry function" in ln:
+            cur = out.setdefault(f"flash_fwd_{m[1]}<{m[2]}>", {})
+        elif cur is not None and "spill stores" in ln:
+            cur["spill_bytes"] = sum(int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", ln))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln)[1])
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = None
+    if os.path.exists(tool):
+        sass = subprocess.run([tool, "-sass", info["path"]],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    for rec in out.values():
+        rec["hgmma"] = None if sass is None else 0
+    cur = None
+    for ln in (sass or "").splitlines():
+        m = name_of.search(ln)
+        if m and "Function :" in ln:
+            cur = out.get(f"flash_fwd_{m[1]}<{m[2]}>")
+        elif cur is not None and "HGMMA" in ln:
+            cur["hgmma"] += 1
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    for d in HEAD_DIMS:
+        rec = out.get(f"flash_fwd_bf16<{d}>", {})
+        check(rec.get("spill_bytes") == 0, f"flash_fwd_bf16<{d}>: ptxas "
+              f"reports {rec}")
+        check(rec.get("hgmma", 1) != 0, f"flash_fwd_bf16<{d}> has no HGMMA "
+              "in its SASS")
+    return {"phase": "flash_build", "instantiations": out}
+
+
 def kernel_row(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1171,6 +1232,7 @@ def main(argv=None) -> int:
           "torch_device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           **build_kernels()})
+    emit(flash_instantiations())
     rows = kernel_phase(device)
     flash_rows = flash_kernel_phase(device)
     decode_rows = decode_kernel_phase(device)

@@ -1,10 +1,18 @@
-"""Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention CUDA kernels (``csrc/flash_attention.cu``).
 
-The kernel replaces the Pallas TPU kernel of the reference
+The kernels replace the Pallas TPU kernel of the reference
 (``src/repro/kernels/flash_attention/kernel.py``: ``flash_attention_kernel``,
-body ``_flash_kernel``).  At the LM path's shape it is bound by operations;
-the source says how its design carries the TPU's sequential kv grid axis
-inside one block.
+body ``_flash_kernel``).  At the LM path's shape both are bound by
+operations.  bf16 runs on tensor cores (``wgmma``) fed by TMA loads: q . k,
+and p . v with p split into two bf16 halves (``p_hi + p_lo``) so that p
+keeps f32 precision, as in the TPU body; f32 runs as FMA on the CUDA cores.
+The source says why and how.
+
+The bf16 kernel reads q, k and v through 4-D TMA tensor maps (d, seq, head,
+batch) over their own strides; :func:`tensor_map_geometry` computes each
+map's dims, byte strides, box and swizzle here, and raises on what TMA
+refuses (a base that is not 16-byte aligned, a stride that is not a
+multiple of 16 bytes).
 
 Dispatch is by the device of the tensors and nothing else: tensors on the
 CPU take the plain version of :mod:`.ref`; tensors on a CUDA device launch
@@ -20,13 +28,16 @@ neither has this one: inputs that require grad raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-__all__ = ["HEAD_DIMS", "flash_attention", "launches", "reset_launches"]
+__all__ = ["BLOCK_Q", "HEAD_DIMS", "TensorMap", "block_keys",
+           "flash_attention", "launches", "reset_launches",
+           "tensor_map_geometry"]
 
 #: head dims with a kernel instantiation: those the reference's kernel tests
 #: use, and 8 (the qwen2-0.5b smoke config)
@@ -36,10 +47,17 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 launches: Dict[str, int] = {"f32": 0, "bf16": 0}
 
+#: query rows per block of the bf16 kernel
+BLOCK_Q = 128
+#: the bf16 entry point's code when cuTensorMapEncodeTiled is not found
+_NO_ENCODER = -999
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-         _P]
+_F = ctypes.c_float
+_ARGS = {"f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+         "bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                  _P]}
 
 
 def reset_launches() -> None:
@@ -55,11 +73,65 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load_libraries
     lib = load_libraries(LIBRARY)["flash_attention"]
     if not getattr(lib, "_repro_typed", False):
-        for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
-            fn.argtypes = _ARGS
+        for dt, args in _ARGS.items():
+            fn = getattr(lib, f"flash_attention_{dt}")
+            fn.argtypes = args
             fn.restype = _I
         lib._repro_typed = True
     return lib
+
+
+def block_keys(d: int) -> int:
+    """Keys per K/V tile of the bf16 kernel at head dim ``d``: 64 at d=128
+    keeps its accumulators in registers, 128 elsewhere."""
+    return 64 if d > 64 else 128
+
+
+@dataclass(frozen=True)
+class TensorMap:
+    """Geometry of one 4-D TMA tensor map over a (B, heads, seq, d) tensor,
+    innermost first, as ``cuTensorMapEncodeTiled`` takes it."""
+    dims: Tuple[int, int, int, int]      # (d, seq, heads, B)
+    strides: Tuple[int, int, int]        # bytes between seq, head, batch
+    box: Tuple[int, int, int, int]       # (columns, rows, 1, 1)
+    swizzle: int                         # bytes of a swizzled row
+
+    def flat(self) -> Tuple[int, ...]:
+        return (*self.dims, *self.strides, *self.box, self.swizzle)
+
+
+def tensor_map_geometry(t: torch.Tensor, rows: int) -> TensorMap:
+    """The tensor map through which the bf16 kernel reads ``t`` (B, heads,
+    seq, d) in boxes of ``rows`` rows.
+
+    A row of the box is d padded to 16 columns (wgmma's k16; TMA fills the
+    columns past d with zeros), swizzled by its width up to 128 bytes; at
+    d = 128 a box is 64 columns and the kernel loads two.  Strides come from
+    the tensor as it is, so transposed views need no copy.  Raises
+    ``ValueError`` on what TMA refuses."""
+    if t.dim() != 4 or t.stride(3) != 1:
+        raise ValueError(f"expected a (B, heads, seq, d) tensor with a "
+                         f"contiguous last dim, got shape {tuple(t.shape)} "
+                         f"strides {t.stride()}")
+    B, heads, L, d = t.shape
+    es = t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte aligned base; this tensor "
+                         f"starts at {t.data_ptr():#x}")
+    strides = []
+    for axis in (2, 1, 0):                       # seq, head, batch
+        nbytes = t.stride(axis) * es
+        if t.shape[axis] == 1:
+            # never stepped over: any stride TMA takes will do
+            nbytes = max(16, -(-nbytes // 16) * 16)
+        elif nbytes <= 0 or nbytes % 16 or nbytes >= 1 << 40:
+            raise ValueError(f"TMA needs strides that are positive "
+                             f"multiples of 16 bytes; axis {axis} of shape "
+                             f"{tuple(t.shape)} steps {nbytes} bytes")
+        strides.append(nbytes)
+    swizzle = min(max(d, 16) * es, 128)
+    return TensorMap(dims=(d, L, heads, B), strides=tuple(strides),
+                     box=(swizzle // es, rows, 1, 1), swizzle=swizzle)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,15 +192,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, H, S, d = q.shape
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     dt = _DTYPES[q.dtype]
-    lib = _lib()
-    fn = lib.flash_attention_f32 if dt == "f32" else lib.flash_attention_bf16
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ctypes.cast(strides, _P), B, H, k.shape[1], S, k.shape[2], d,
-            t_valid, int(causal), 1.0 / d ** 0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if dt == "f32":
+        strides = (ctypes.c_longlong * 12)(
+            *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+        rc = _lib().flash_attention_f32(
+            *ptrs, ctypes.cast(strides, _P), B, H, k.shape[1], S,
+            k.shape[2], d, t_valid, int(causal), 1.0 / d ** 0.5, stream)
+    else:
+        geo = [x for t, rows in ((q, BLOCK_Q), (k, block_keys(d)),
+                                 (v, block_keys(d)))
+               for x in tensor_map_geometry(t, rows).flat()]
+        o_strides = (ctypes.c_longlong * 3)(*out.stride()[:3])
+        geo = (ctypes.c_longlong * len(geo))(*geo)
+        rc = _lib().flash_attention_bf16(
+            *ptrs, ctypes.cast(o_strides, _P), ctypes.cast(geo, _P), B, H,
+            k.shape[1], S, d, t_valid, int(causal), 1.0 / d ** 0.5, stream)
+    if rc == _NO_ENCODER:
+        raise RuntimeError("flash_attention_bf16: cuTensorMapEncodeTiled "
+                           "not found")
+    if rc < 0:
+        raise RuntimeError(f"flash_attention_bf16: cuTensorMapEncodeTiled "
+                           f"refused a tensor map (CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"flash_attention_{dt} launch failed with CUDA "
                            f"error {rc}")

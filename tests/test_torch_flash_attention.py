@@ -143,3 +143,103 @@ def test_cpu_tensors_launch_nothing():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 1, 8, 8, 16))
     ops.flash_attention(q, k, v, causal=True)
     assert ops.launches == {"f32": 0, "bf16": 0}
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's arithmetic and its TMA geometry
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's bf16 gate: |kernel - plain_f32| <= 2**-8 |plain_f32| + 1e-5
+HALF_ULP, ABS_SLACK = 2.0 ** -8, 1e-5
+# qwen2-0.5b heads at a quarter of the LM path's sequence
+SPLIT_CASES = CASES + [(1, 14, 2, 512, 512, 64, True)]
+
+
+def _excess(got, want32):
+    """Largest excess of |got - want32| over half a bf16 ulp of want32."""
+    got, want32 = (torch.from_numpy(np.array(_np(x))) for x in (got, want32))
+    return float(((got - want32).abs() - HALF_ULP * want32.abs()).max())
+
+
+def _tensor_core_attention(q, k, v, *, causal, split_p=True):
+    """The bf16 kernel's arithmetic on bf16 q, k, v: exact bf16 products of
+    q . k summed in f32, 1/sqrt(d) on the f32 scores, p = exp(s - m) in
+    f32 with l summed from it, p . v as p_hi . v + p_lo . v (p_hi =
+    bf16(p), p_lo = bf16(p - p_hi)) or, with ``split_p`` off, bf16(p) . v,
+    f32 sums, one rounding of the output to bf16."""
+    S, d = q.shape[2], q.shape[3]
+    T, group = k.shape[2], q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) * (1.0 / d ** 0.5)
+    if causal:
+        above = torch.arange(T)[None, :] > torch.arange(S)[:, None]
+        s = s.masked_fill(above, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    p_hi = p.bfloat16().float()
+    if split_p:
+        o = p_hi @ vf + (p - p_hi).bfloat16().float() @ vf
+    else:
+        o = p_hi @ vf
+    return (o / l).bfloat16()
+
+
+@pytest.mark.parametrize("B,H,KV,S,T,d,causal", SPLIT_CASES)
+def test_split_p_within_half_ulp(B, H, KV, S, T, d, causal):
+    """Split p keeps the bf16 kernel within half a bf16 ulp (+1e-5) of the
+    f32 result: the JAX kernel (interpret mode) and the plain version, both
+    at f32 on the same bf16 values."""
+    (_, _, _), (q, k, v) = _both(_inputs(B, H, KV, S, T, d), "bf16")
+    got = _tensor_core_attention(q, k, v, causal=causal)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    jax_f32 = jflash(*(jnp.asarray(x.numpy()) for x in (q32, k32, v32)),
+                     causal=causal, bq=min(S, 256), bk=256)
+    plain_f32 = flash_attention_ref(q32, k32, v32, causal=causal)
+    assert _excess(got, jax_f32) <= ABS_SLACK
+    assert _excess(got, plain_f32) <= ABS_SLACK
+
+
+def test_bf16_p_outside_half_ulp():
+    """Why p is split: rounding p to bf16 for p . v leaves the gate."""
+    B, H, KV, S, T, d, causal = SPLIT_CASES[-1]
+    (_, _, _), (q, k, v) = _both(_inputs(B, H, KV, S, T, d), "bf16")
+    plain_f32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                    causal=causal)
+    excess = _excess(_tensor_core_attention(q, k, v, causal=causal,
+                                            split_p=False), plain_f32)
+    assert excess > 10 * ABS_SLACK
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "trunk_view"])
+@pytest.mark.parametrize("d", ops.HEAD_DIMS)
+def test_tensor_map_geometry(d, layout):
+    B, H, S = 2, 14, 300
+    if layout == "contiguous":
+        t = torch.zeros(B, H, S, d, dtype=torch.bfloat16)
+        strides = (2 * d, 2 * S * d, 2 * H * S * d)
+    else:                                   # the trunk's x.transpose(1, 2)
+        t = torch.zeros(B, S, H, d, dtype=torch.bfloat16).transpose(1, 2)
+        strides = (2 * H * d, 2 * d, 2 * S * H * d)
+    rows = ops.block_keys(d)
+    geo = ops.tensor_map_geometry(t, rows)
+    assert geo.dims == (d, S, H, B)
+    assert geo.strides == strides
+    width = {8: 16, 16: 16, 32: 32, 64: 64, 128: 64}[d]   # columns per box
+    assert geo.box == (width, rows, 1, 1)
+    assert geo.swizzle == 2 * width
+    assert rows == (64 if d == 128 else 128)
+    assert len(geo.flat()) == 12
+
+
+def test_tensor_map_geometry_raises_on_misaligned_base():
+    flat = torch.zeros(1 + 2 * 2 * 8 * 16, dtype=torch.bfloat16)
+    t = flat[1:].view(2, 2, 8, 16)          # starts 2 bytes past 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.tensor_map_geometry(t, ops.BLOCK_Q)
+
+
+def test_tensor_map_geometry_raises_on_stride():
+    t = torch.zeros(1, 2, 8, 12, dtype=torch.bfloat16)[..., :8]  # 24 bytes
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ops.tensor_map_geometry(t, ops.BLOCK_Q)
