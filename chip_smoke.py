@@ -14,13 +14,24 @@ Phases, each printing one JSON line:
                 ``flash_build`` line: each flash instantiation's ptxas
                 registers and spill bytes and its count of ``HGMMA``
                 (tensor-core) instructions from ``cuobjdump -sass`` (every
-                bf16 instantiation must have some and spill nothing).
+                bf16 instantiation must have some and spill nothing); then a
+                ``topk_build`` line: the same for the topk_mips kernels
+                (``score_f32``, ``score_tc<bf16>``, ``score_tc<int8>``,
+                ``select_topk``), with the warpgroup MMA count by mnemonic
+                (``HGMMA``, ``IGMMA``): none may spill, and the bf16 and int8
+                scoring kernels must have some.
   2. kernels  — every topk_mips kernel (f32, bf16, int8) at the main path's
                 shapes (Q=256 queries, D=768, a chunk of N=1024 rows, k=100
                 and 1000, a ragged chunk, the engine carry) plus edge shapes,
-                held against its plain PyTorch version on the card, and timed
-                with CUDA events beside the plain version and a library
-                yardstick (``torch.topk(q @ c.T)``, which the port never calls).
+                exact ties from duplicated integer rows and ties exactly at
+                the carry's k-th score, held against its plain PyTorch
+                version on the card, and timed with CUDA events (``ms``,
+                wrapper included) beside the plain version and a library
+                yardstick (``torch.topk(q @ c.T)``, which the port never
+                calls); ``device_ms`` is the two kernels' device time per
+                call from a ``torch.profiler`` window over 20 calls (the
+                union of their intervals), ``device_ms_by_kernel`` each
+                kernel's own.
   3. flash    — the flash-attention kernel (f32, bf16) at the LM path's shape
                 (B=4, H=14, KV=2, S=T=2048, d=64, causal, on the trunk's
                 strided views) and, at bf16, the qwen2-72b head geometry
@@ -247,6 +258,23 @@ def kernel_phase(device):
         compare(dt, ops.topk_mips(q, c, k=50, score_dtype=dt),
                 ref.topk_mips_ref(q, c, k=50, score_dtype=dt),
                 exact_ties=True)
+        # ties at the threshold: a full carry from one integer chunk, then a
+        # chunk holding every one of its rows again (so each row's k-th
+        # carry score recurs exactly) among new ones; the carry must win
+        c1 = torch.randint(-3, 4, (300, 64), generator=gen).float()
+        c2 = torch.cat([c1[torch.randperm(300, generator=gen)],
+                        torch.randint(-3, 4, (200, 64), generator=gen)
+                        .float()]).to(device)
+        c1 = c1.to(device)
+        run = ops.topk_mips_chunk(
+            q, c1, torch.full((8, 50), float("-inf"), device=device),
+            torch.zeros((8, 50), dtype=torch.int32, device=device), base=0,
+            score_dtype=dt)
+        qk, ck, qs, cs = plain_inputs(dt, q, c2)
+        compare(dt, ops.topk_mips_chunk(q, c2, *run, base=300,
+                                        score_dtype=dt),
+                plain_chunk(dt, qk, ck, qs, cs, *run, 300, 500),
+                exact_ties=True)
 
         # the main path's call: one chunk folded into the engine carry
         for k in (100, 1000):
@@ -275,6 +303,8 @@ def kernel_phase(device):
                 err = compare(dt, got, plain())
                 compare(dt, kernel(), got, exact_ties=True)
                 ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
+                dev_ms, by_kernel = device_ms(f"topk_{dt}_{k}_{n_valid}",
+                                              kernel, TOPK_KERNELS)
                 library_ms = cuda_time_ms(
                     lambda: library_call(dt, qk, ck, qs, cs, k))
                 nbytes = (Q + N) * D * ELEM_BYTES[dt] + 4 * Q * k * 4
@@ -284,8 +314,9 @@ def kernel_phase(device):
                 t_ops = 2 * Q * n_valid * D / PEAK_OPS_S[dt] * 1e3
                 row = {"phase": "kernels", "variant": dt, "Q": Q, "N": N,
                        "n_valid": n_valid, "D": D, "k": k,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms,
+                       "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                       "device_ms_by_kernel": by_kernel,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops
                        else "operations"}
@@ -1088,6 +1119,55 @@ def decode_step_part(part, device, params, full, shape, trace=False):
     torch.cuda.empty_cache()
 
 
+def device_events(prof, name):
+    """The kernel, memcpy and memset records of a finished profile, read
+    from its Chrome trace (``build/chip_smoke/trace_<name>.json``)."""
+    path = os.path.join(ROOT, "build", "chip_smoke", f"trace_{name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' device intervals (us)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo = busy + hi - lo, s
+        hi = max(hi, e)
+    return busy + hi - lo
+
+
+def device_ms(name, fn, kernels, iters: int = 20):
+    """Device time per call of the kernels whose names contain one of
+    ``kernels`` over ``iters`` calls of ``fn`` under ``torch.profiler``
+    (after one warm call): the union of their intervals, since a kernel
+    launched with programmatic dependent launch may start before the one
+    it follows ends; and each kernel's own time per call, by the entry of
+    ``kernels`` its name contains."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):        # a window can come back without device records
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ours = [e for e in device_events(prof, name)
+                if any(k in e["name"] for k in kernels)]
+        if ours:
+            by_kernel = {k: sum(e["dur"] for e in ours if k in e["name"])
+                         / 1e3 / iters for k in kernels}
+            return busy_us(ours) / 1e3 / iters, {
+                k: v for k, v in by_kernel.items() if v}
+    raise AssertionError(f"{name}: the profiler saw none of {kernels}")
+
+
 def traced(name, fn, kernels):
     """Run ``fn`` once under ``torch.profiler``.  From the exported Chrome
     trace: device time by kernel, the time of the kernels whose names
@@ -1100,20 +1180,10 @@ def traced(name, fn, kernels):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    path = os.path.join(ROOT, "build", "chip_smoke", f"trace_{name}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    dev = device_events(prof, name)
     check(bool(dev), f"the {name} trace holds no device activity")
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
-    busy, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy, lo = busy + hi - lo, s
-        hi = max(hi, e)
-    busy += hi - lo
+    busy = busy_us(dev)
     by_name: dict = {}
     for e in dev:
         key = e["name"][:90]
@@ -1146,7 +1216,7 @@ def trace_phase():
             "--output_dir", os.path.join(work, "out_trace")]
     emit(traced("validate_bf16",
                 lambda: check(cli.main(args) == 0, "traced cli run failed"),
-                ("mips_tile_topk", "merge_topk")))
+                TOPK_KERNELS))
 
 
 def build_kernels():
@@ -1167,21 +1237,26 @@ def build_kernels():
                       for name, info in build.BUILD_INFO.items()}}
 
 
-def flash_instantiations():
-    """Each flash instantiation's ptxas registers and spill bytes, and the
-    count of ``HGMMA`` (wgmma) instructions in its SASS from ``cuobjdump
-    -sass`` of the built library (None without cuobjdump).  Every bf16
-    instantiation must run on tensor cores and spill nothing."""
+def build_records(lib, names):
+    """Each kernel of library ``lib`` whose mangled name matches one of
+    ``names`` (label -> regex): its ptxas registers and spill bytes, and the
+    count of warpgroup MMA instructions (``HGMMA``, ``IGMMA``, ...) in its
+    SASS from ``cuobjdump -sass`` of the built library ({} per kernel when
+    it has none; None without cuobjdump)."""
     import re
 
     from repro_torch.kernels import build
-    info = build.BUILD_INFO["flash_attention"]
-    name_of = re.compile(r"flash_fwd_(bf16|f32)ILi(\d+)E")
+    info = build.BUILD_INFO[lib]
+
+    def label(ln):
+        return next((k for k, pat in names.items() if re.search(pat, ln)),
+                    None)
+
     out, cur = {}, None
     for ln in info["log"].splitlines():
-        m = name_of.search(ln)
-        if m and "Compiling entry function" in ln:
-            cur = out.setdefault(f"flash_fwd_{m[1]}<{m[2]}>", {})
+        if "Compiling entry function" in ln:
+            name = label(ln)
+            cur = out.setdefault(name, {}) if name else None
         elif cur is not None and "spill stores" in ln:
             cur["spill_bytes"] = sum(int(x) for x in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", ln))
@@ -1195,30 +1270,69 @@ def flash_instantiations():
                               capture_output=True, text=True,
                               check=True).stdout
     for rec in out.values():
-        rec["hgmma"] = None if sass is None else 0
+        rec["gmma"] = None if sass is None else {}
     cur = None
     for ln in (sass or "").splitlines():
-        m = name_of.search(ln)
-        if m and "Function :" in ln:
-            cur = out.get(f"flash_fwd_{m[1]}<{m[2]}>")
-        elif cur is not None and "HGMMA" in ln:
-            cur["hgmma"] += 1
+        if "Function :" in ln:
+            cur = out.get(label(ln))
+        elif cur is not None:
+            m = re.search(r"\b([A-Z]GMMA)\b", ln)
+            if m:
+                cur["gmma"][m[1]] = cur["gmma"].get(m[1], 0) + 1
+    return out
+
+
+def flash_instantiations():
+    """Each flash instantiation's ptxas registers and spill bytes, and the
+    count of ``HGMMA`` (wgmma) instructions in its SASS.  Every bf16
+    instantiation must run on tensor cores and spill nothing."""
     from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    recs = build_records("flash_attention", {
+        f"flash_fwd_{dt}<{d}>": rf"flash_fwd_{dt}ILi{d}E"
+        for dt in ("bf16", "f32") for d in HEAD_DIMS})
+    for rec in recs.values():
+        gmma = rec.pop("gmma")
+        rec["hgmma"] = None if gmma is None else gmma.get("HGMMA", 0)
     for d in HEAD_DIMS:
-        rec = out.get(f"flash_fwd_bf16<{d}>", {})
+        rec = recs.get(f"flash_fwd_bf16<{d}>", {})
         check(rec.get("spill_bytes") == 0, f"flash_fwd_bf16<{d}>: ptxas "
               f"reports {rec}")
         check(rec.get("hgmma", 1) != 0, f"flash_fwd_bf16<{d}> has no HGMMA "
               "in its SASS")
-    return {"phase": "flash_build", "instantiations": out}
+    return {"phase": "flash_build", "instantiations": recs}
+
+
+# topk_mips kernels by label: the mangled-name pattern of each
+TOPK_BUILD = {"score_f32": r"score_f32", "score_tc<bf16>": r"score_tcIfE",
+              "score_tc<int8>": r"score_tcIiE", "select_topk": r"select_topk"}
+# names in the profiler's kernel records
+TOPK_KERNELS = ("score_f32", "score_tc", "select_topk")
+
+
+def topk_instantiations():
+    """The topk_mips kernels' ptxas registers and spill bytes and their
+    warpgroup MMA counts.  No kernel may spill; the bf16 and int8 scoring
+    kernels must run on tensor cores."""
+    recs = build_records("topk_mips", TOPK_BUILD)
+    for name in TOPK_BUILD:
+        rec = recs.get(name, {})
+        check(rec.get("spill_bytes") == 0, f"{name}: ptxas reports {rec}")
+    for name in ("score_tc<bf16>", "score_tc<int8>"):
+        gmma = recs[name]["gmma"]
+        check(gmma is None or sum(gmma.values()) > 0,
+              f"{name} has no warpgroup MMA in its SASS")
+    return {"phase": "topk_build", "kernels": recs}
 
 
 def kernel_row(name, source, replaces, launches, row):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+           "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+           "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    if "device_ms" in row:
+        out["device_ms"] = row["device_ms"]
+    return out
 
 
 def main(argv=None) -> int:
@@ -1233,6 +1347,7 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           **build_kernels()})
     emit(flash_instantiations())
+    emit(topk_instantiations())
     rows = kernel_phase(device)
     flash_rows = flash_kernel_phase(device)
     decode_rows = decode_kernel_phase(device)

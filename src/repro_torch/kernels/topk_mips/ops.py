@@ -2,11 +2,19 @@
 
 The kernels replace the Pallas TPU kernels of the reference
 (``src/repro/kernels/topk_mips/kernel.py``: ``topk_mips_kernel`` at f32 and
-bf16, ``topk_mips_kernel_int8`` at int8).  At the engine's shape they are
-bound by arithmetic at f32 (no TF32 is allowed, so the tensor cores are
-out) and by memory at bf16 and int8; the source says how the design
-replaces the TPU's sequential running top-k with a split-and-merge in two
-passes.
+bf16, ``topk_mips_kernel_int8`` at int8).  Each call is two launches: pass 1
+scores (64 query rows) x (32 corpus rows) tiles (bf16 and int8 on the tensor
+cores through ``wgmma``, f32 as a register-tiled FMA product with no TF32,
+both fed by TMA) and keeps only the scores that can still enter the top k (strictly
+above the carry's k-th score once the carry is full); pass 2 radix-selects
+the k-th key of carry || survivors per row and sorts only the k it keeps.
+The source says why and how.
+
+The kernels need rows of a 16-byte multiple: :func:`padded_dim` gives the
+feature width they take and :func:`pad_features` zero-pads to it (zeros
+change no sum); D = 768 at every dtype needs no copy.  :func:`_windows`
+cuts a corpus longer than pass 2's candidate budget into launches that fold
+into the carry in order.
 
 Dispatch is by the device of the tensors and nothing else: a tensor on the
 CPU takes the plain version of :mod:`.ref`; a tensor on a CUDA device
@@ -20,26 +28,31 @@ no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.topk_mips.ref import (SCORE_DTYPES, merge_carry_ref,
                                                quantize_int8, topk_mips_ref)
 
-__all__ = ["SCORE_DTYPES", "MAX_K", "quantize_int8", "topk_mips",
-           "topk_mips_chunk", "launches", "reset_launches"]
+__all__ = ["SCORE_DTYPES", "MAX_K", "pad_features", "padded_dim",
+           "quantize_int8", "topk_mips", "topk_mips_chunk", "launches",
+           "reset_launches"]
 
 #: largest k the kernels take (bounded by pass 2's shared-memory sort)
 MAX_K = 4096
 
 launches: Dict[str, int] = {"f32": 0, "bf16": 0, "int8": 0}
 
+ELEM_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
+#: the library's code when cuTensorMapEncodeTiled is not found
+_NO_ENCODER = -999
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FLOAT_ARGS = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
-               _P, _P, _P, _P, _P]
-_INT8_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+_FLOAT_ARGS = [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+_INT8_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
               _P, _P, _P, _P, _P]
 
 
@@ -51,21 +64,43 @@ def reset_launches() -> None:
 #: the kernel's library: name -> sources under ``csrc/``
 LIBRARY = {"topk_mips": ["topk_mips.cu"]}
 
+_LIB: Optional[ctypes.CDLL] = None
 
-def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels.build import load_libraries
-    lib = load_libraries(LIBRARY)["topk_mips"]
-    if not getattr(lib, "_repro_typed", False):
+
+def _lib(device: torch.device) -> ctypes.CDLL:
+    """The built library, typed, with its entry points by variant
+    (``entry``), its geometry (``cols``: corpus rows per pass-1 tile,
+    ``max_cand``: pass 2's keys per row) and the devices it has set up
+    (``ready``); each read once."""
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels.build import load_libraries
+        lib = load_libraries(LIBRARY)["topk_mips"]
         lib.topk_mips_f32.argtypes = _FLOAT_ARGS
         lib.topk_mips_bf16.argtypes = _FLOAT_ARGS
         lib.topk_mips_int8.argtypes = _INT8_ARGS
         for fn in (lib.topk_mips_f32, lib.topk_mips_bf16, lib.topk_mips_int8,
-                   lib.topk_mips_block_cols, lib.topk_mips_max_candidates):
+                   lib.topk_mips_block_cols, lib.topk_mips_max_candidates,
+                   lib.topk_mips_init):
             fn.restype = _I
-        lib.topk_mips_block_cols.argtypes = []
-        lib.topk_mips_max_candidates.argtypes = []
-        lib._repro_typed = True
-    return lib
+        for fn in (lib.topk_mips_block_cols, lib.topk_mips_max_candidates,
+                   lib.topk_mips_init):
+            fn.argtypes = []
+        lib.entry = {"f32": lib.topk_mips_f32, "bf16": lib.topk_mips_bf16,
+                     "int8": lib.topk_mips_int8}
+        lib.cols = lib.topk_mips_block_cols()
+        lib.max_cand = lib.topk_mips_max_candidates()
+        lib.ready = set()
+        _LIB = lib
+    if device.index not in _LIB.ready:
+        with torch.cuda.device(device):
+            rc = _LIB.topk_mips_init()
+        if rc == _NO_ENCODER:
+            raise RuntimeError("topk_mips: cuTensorMapEncodeTiled not found")
+        if rc != 0:
+            raise RuntimeError(f"topk_mips_init failed with CUDA error {rc}")
+        _LIB.ready.add(device.index)
+    return _LIB
 
 
 def _check(t: torch.Tensor, name: str, dtypes, device, ndim: int) -> None:
@@ -83,6 +118,21 @@ def _check(t: torch.Tensor, name: str, dtypes, device, ndim: int) -> None:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def padded_dim(D: int, score_dtype: str) -> int:
+    """The feature width the kernels take for ``D`` features: rows of a
+    16-byte multiple, TMA's rule for the strides of a tensor map."""
+    per = 16 // ELEM_BYTES[score_dtype]
+    return -(-D // per) * per
+
+
+def pad_features(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` (rows, D) zero-padded to ``width`` features, 16-byte aligned;
+    ``x`` itself when it already is."""
+    if x.shape[1] != width:
+        return F.pad(x, (0, width - x.shape[1]))
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _kernel_inputs(q, c, score_dtype):
@@ -103,22 +153,26 @@ def _kernel_inputs(q, c, score_dtype):
     return qv, cv, qs.reshape(-1).contiguous(), cs.reshape(-1).contiguous()
 
 
-def _windows(n_rows: int, n_valid: int, k_target: int, kc: int, cn: int,
-             max_cand: int):
-    """Cut the corpus into launches: ``[(w0, width, nv, kc, k_out), ...]``.
+def _windows(n_valid: int, k_target: int, kc: int, cols: int,
+             max_cand: int) -> List[Tuple[int, int, int, int]]:
+    """Cut the first ``n_valid`` corpus rows into launches:
+    ``[(w0, width, kc, k_out), ...]``.
 
-    A window of ``width`` rows yields ``ceil(width / cn)`` partial lists of
-    ``min(k_target, cn)`` entries each; with the ``kc`` carry entries they
-    must fit pass 2's ``max_cand`` candidates.  Each window folds into the
-    carry the previous one left (``kc``), keeping the reference's order:
-    earlier rows win ties.  Rows at or past ``n_valid`` are never scored."""
-    kk = min(k_target, cn)
+    Pass 2 holds a row's ``kc`` carry keys and one slot for every row of the
+    window's ``ceil(width / cols)`` tiles (all of them survive when the
+    carry is not full) in shared memory: at most ``max_cand``.  Each window
+    folds into the carry the previous one left (``kc``), keeping the
+    reference's order: earlier rows win ties."""
+    if kc + -(-n_valid // cols) * cols <= max_cand:     # the common case
+        return [(0, n_valid, kc, min(k_target, kc + n_valid))]
     out, w0 = [], 0
     while w0 < n_valid:
-        width = min(n_rows - w0, cn * ((max_cand - kc) // kk))
-        nv = min(n_valid - w0, width)
-        k_out = min(k_target, kc + nv)
-        out.append((w0, width, nv, kc, k_out))
+        width = min(n_valid - w0, (max_cand - kc) // cols * cols)
+        if width <= 0:
+            raise ValueError(f"a carry of {kc} leaves no room for a tile of "
+                             f"{cols} rows in {max_cand} candidates")
+        k_out = min(k_target, kc + width)
+        out.append((w0, width, kc, k_out))
         kc, w0 = k_out, w0 + width
     return out
 
@@ -127,35 +181,41 @@ def _topk_cuda(score_dtype: str, q, c, q_scale, c_scale, *, k_target: int,
                n_valid: int, carry=None, base: int = 0):
     """Top ``k_target`` of ``carry || c[:n_valid]`` per query row, one
     launch per window of :func:`_windows`."""
-    lib = _lib()
-    cn = lib.topk_mips_block_cols()
+    index = q.device.index
+    lib = _LIB if _LIB is not None and index in _LIB.ready else _lib(q.device)
+    lib_fn, cols = lib.entry[score_dtype], lib.cols
     Q, D = q.shape
-    fn = {"f32": lib.topk_mips_f32, "bf16": lib.topk_mips_bf16,
-          "int8": lib.topk_mips_int8}[score_dtype]
+    Dp = padded_dim(D, score_dtype)
+    q, c = pad_features(q, Dp), pad_features(c, Dp)
+    row_bytes = Dp * ELEM_BYTES[score_dtype]
     run_s, run_i = carry if carry is not None else (None, None)
-    kk = min(k_target, cn)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    for w0, width, nv, kc, k_out in _windows(
-            c.shape[0], n_valid, k_target, 0 if run_s is None else
-            run_s.shape[1], cn, lib.topk_mips_max_candidates()):
-        n_splits = -(-width // cn)
-        part_s = torch.empty((Q, n_splits, kk), dtype=torch.float32,
-                             device=q.device)
-        part_i = torch.empty((Q, n_splits, kk), dtype=torch.int32,
-                             device=q.device)
-        out_s = torch.empty((Q, k_out), dtype=torch.float32, device=q.device)
-        out_i = torch.empty((Q, k_out), dtype=torch.int32, device=q.device)
-        head = [_ptr(q), _ptr(c[w0:w0 + width])]
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    for w0, width, kc, k_out in _windows(
+            n_valid, k_target, 0 if run_s is None else run_s.shape[1], cols,
+            lib.max_cand):
+        # one allocation: out_s and out_i, then the survivors' (score, row)
+        # pairs and counts of the window's Q x n_tiles segments
+        n_tiles = -(-width // cols)
+        words = Q * k_out
+        buf = torch.empty((2 + -(-(2 * cols + 1) * Q * n_tiles // words), Q,
+                           k_out), dtype=torch.float32, device=q.device)
+        ptr = buf.data_ptr()
+        seg = ptr + 8 * words                   # 8-byte aligned pairs
+        head = [q.data_ptr(), c.data_ptr() + w0 * row_bytes]
         if score_dtype == "int8":
-            head += [_ptr(q_scale), _ptr(c_scale[w0:w0 + width])]
-        rc = fn(*head, Q, width, D, nv, kk, _ptr(run_s), _ptr(run_i), kc,
-                base + w0, k_out, _ptr(part_s), _ptr(part_i), _ptr(out_s),
-                _ptr(out_i), stream)
+            head += [q_scale.data_ptr(), c_scale.data_ptr() + 4 * w0]
+        rc = lib_fn(*head, Q, width, Dp, _ptr(run_s), _ptr(run_i), kc,
+                    base + w0, k_out, seg, seg + 8 * cols * Q * n_tiles, ptr,
+                    ptr + 4 * words, stream)
+        if rc < 0:
+            raise RuntimeError(f"topk_mips_{score_dtype}: "
+                               f"cuTensorMapEncodeTiled refused a tensor map "
+                               f"(CUresult {-rc})")
         if rc != 0:
             raise RuntimeError(f"topk_mips_{score_dtype} launch failed with "
                                f"CUDA error {rc}")
         launches[score_dtype] += 1
-        run_s, run_i = out_s, out_i
+        run_s, run_i = buf[0], buf[1].view(torch.int32)
     return run_s, run_i
 
 
@@ -204,7 +264,10 @@ def topk_mips_chunk(q: torch.Tensor, c_chunk: torch.Tensor,
     """Chunk-carry entry point of the streaming engine: fold the top-k of
     one corpus chunk (global row offset ``base``, first ``n_valid`` rows
     real) into the running ``(Q, k)`` carry and return the new carry.  On
-    the card the carry is merged inside the kernel's second pass."""
+    the card the carry is merged inside the kernel's second pass; it must
+    be in the output order (a previous result, or a constant fill), as the
+    engine's always is, since the kernel reads its k-th score as the
+    threshold a chunk score must beat."""
     k = run_s.shape[1]
     _validate(score_dtype, k)
     N = c_chunk.shape[0]
