@@ -19,7 +19,12 @@ Phases, each printing one JSON line:
                 (``score_f32``, ``score_tc<bf16>``, ``score_tc<int8>``,
                 ``select_topk``), with the warpgroup MMA count by mnemonic
                 (``HGMMA``, ``IGMMA``): none may spill, and the bf16 and int8
-                scoring kernels must have some.
+                scoring kernels must have some; then a ``decode_build``
+                line: the same for every decode instantiation
+                (``decode_split_tc<d>`` at bf16, ``decode_split_f32<d,GT>``,
+                ``decode_merge``) with its ``HMMA`` (``mma.sync``) count:
+                every bf16 pass-1 instantiation at d >= 16 must have some
+                and spill nothing.
   2. kernels  — every topk_mips kernel (f32, bf16, int8) at the main path's
                 shapes (Q=256 queries, D=768, a chunk of N=1024 rows, k=100
                 and 1000, a ragged chunk, the engine carry) plus edge shapes,
@@ -48,7 +53,11 @@ Phases, each printing one JSON line:
                 reference's kernel-test cases and 12 random small shapes, on
                 the trunk's transposed cache views; garbage past length must
                 change nothing; timed beside the plain version and
-                ``scaled_dot_product_attention`` over the valid prefix.
+                ``scaled_dot_product_attention`` over the valid prefix.  Each
+                row gives the plan (``splits``, ``keys_per_split``) and, as
+                the topk rows do, ``device_ms`` and ``device_ms_by_kernel``
+                (``decode_split``, and ``decode_merge`` with more than one
+                split) from a profiler window over 20 calls.
   4. encoder  — the full-width dr-bert-base trunk on the card against the same
                 trunk on the CPU, in f32, on a few sequences.
   5. main     — the validator CLI (``repro_torch.core.cli.main``) on two
@@ -499,6 +508,9 @@ DECODE_SHAPES = [("serve", 4, 2, 7, 64, 144, 128),
                  ("qwen2_72b", 8, 8, 8, 128, 32768, 32768)]
 # the shape of the kernels line: the decode_32k layer
 DECODE_MAIN = "decode_32k"
+# names in the profiler's kernel records: pass 1, and pass 2 when the plan
+# has more than one split
+DECODE_KERNELS = ("decode_split", "decode_merge")
 # the cases of tests/test_kernels.py (decode_attention_matches_ref):
 # (B, KV, G, T, d, length)
 DECODE_CASES = [(2, 2, 4, 256, 64, 100), (1, 8, 1, 512, 128, 512),
@@ -577,6 +589,7 @@ def decode_kernel_phase(device):
                     enable_gqa=True)
 
             got = kernel()
+            splits, keys_per_split = ops.split_plan(q, L)
             err, excess = gate(name, got, L, q, k, v)
             if L < T:
                 # garbage past length changes nothing, bit for bit
@@ -588,15 +601,20 @@ def decode_kernel_phase(device):
             lib_err = float((library().reshape(got.shape).float()
                              - got.float()).abs().max())
             ms = cuda_time_ms(kernel)
+            dev_ms, by_kernel = device_ms(f"decode_{dt}_{name}_{L}", kernel,
+                                          DECODE_KERNELS)
             plain_ms = cuda_time_ms(plain, iters=5)
             library_ms = cuda_time_ms(library)
             bound_ms, bound_by = decode_bound_ms(dt, B, KV, G, d, L)
             row = {"phase": "decode", "variant": dt, "shape": name, "B": B,
                    "KV": KV, "G": G, "d": d, "T": T, "length": L,
+                   "splits": splits, "keys_per_split": keys_per_split,
                    "max_abs_err": err, "tolerance": ATTN_TOL[dt],
                    "excess_over_half_ulp": excess,
                    "library_max_abs_diff": lib_err,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "ms": ms, "device_ms": dev_ms,
+                   "device_ms_by_kernel": by_kernel,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_share": bound_ms / ms}
             emit(row)
@@ -1152,7 +1170,10 @@ def device_ms(name, fn, kernels, iters: int = 20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):        # a window can come back without device records
+    counts = {}
+    for _ in range(5):
+        # a window can come back without device records, or with some of
+        # them missing: take one where every kernel seen ran in every call
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -1160,12 +1181,15 @@ def device_ms(name, fn, kernels, iters: int = 20):
             torch.cuda.synchronize()
         ours = [e for e in device_events(prof, name)
                 if any(k in e["name"] for k in kernels)]
-        if ours:
+        counts = {k: sum(k in e["name"] for e in ours) for k in kernels}
+        if ours and all(n % iters == 0 for n in counts.values()):
             by_kernel = {k: sum(e["dur"] for e in ours if k in e["name"])
                          / 1e3 / iters for k in kernels}
             return busy_us(ours) / 1e3 / iters, {
                 k: v for k, v in by_kernel.items() if v}
-    raise AssertionError(f"{name}: the profiler saw none of {kernels}")
+    raise AssertionError(f"{name}: no profiler window held every call's "
+                         f"records of {kernels} (last: {counts} for "
+                         f"{iters} calls)")
 
 
 def traced(name, fn, kernels):
@@ -1240,9 +1264,10 @@ def build_kernels():
 def build_records(lib, names):
     """Each kernel of library ``lib`` whose mangled name matches one of
     ``names`` (label -> regex): its ptxas registers and spill bytes, and the
-    count of warpgroup MMA instructions (``HGMMA``, ``IGMMA``, ...) in its
-    SASS from ``cuobjdump -sass`` of the built library ({} per kernel when
-    it has none; None without cuobjdump)."""
+    count of its tensor-core instructions by mnemonic (warpgroup MMA:
+    ``HGMMA``, ``IGMMA``, ...; warp MMA: ``HMMA``) in its SASS from
+    ``cuobjdump -sass`` of the built library ({} per kernel when it has
+    none; None without cuobjdump)."""
     import re
 
     from repro_torch.kernels import build
@@ -1276,7 +1301,7 @@ def build_records(lib, names):
         if "Function :" in ln:
             cur = out.get(label(ln))
         elif cur is not None:
-            m = re.search(r"\b([A-Z]GMMA)\b", ln)
+            m = re.search(r"\b([A-Z]GMMA|HMMA)\b", ln)
             if m:
                 cur["gmma"][m[1]] = cur["gmma"].get(m[1], 0) + 1
     return out
@@ -1324,6 +1349,37 @@ def topk_instantiations():
     return {"phase": "topk_build", "kernels": recs}
 
 
+# decode kernels by label: bf16 has one pass-1 instantiation per head dim,
+# f32 one per head dim and padded group GT
+DECODE_BUILD = {
+    **{f"decode_split_tc<{d}>": rf"decode_split_tcILi{d}EE"
+       for d in (8, 16, 32, 64, 128)},
+    **{f"decode_split_f32<{d},{gt}>": rf"decode_split_f32ILi{d}ELi{gt}EE"
+       for d in (8, 16, 32, 64, 128) for gt in (1, 2, 4, 8, 16)},
+    "decode_merge<bf16>": r"decode_mergeI13__nv_bfloat16",
+    "decode_merge<f32>": r"decode_mergeIfE"}
+
+
+def decode_instantiations():
+    """Each decode instantiation's ptxas registers and spill bytes and its
+    count of ``HMMA`` (``mma.sync``) instructions.  Every bf16 pass-1
+    instantiation at d >= 16 must run on tensor cores and spill nothing."""
+    from repro_torch.kernels.decode_attention.ops import HEAD_DIMS
+    recs = build_records("decode_attention", DECODE_BUILD)
+    for rec in recs.values():
+        gmma = rec.pop("gmma")
+        rec["hmma"] = None if gmma is None else gmma.get("HMMA", 0)
+    for d in HEAD_DIMS:
+        name = f"decode_split_tc<{d}>"
+        rec = recs.get(name, {})
+        check("registers" in rec, f"{name}: no ptxas record")
+        if d >= 16:
+            check(rec.get("spill_bytes") == 0, f"{name}: ptxas reports "
+                  f"{rec}")
+            check(rec.get("hmma", 1) != 0, f"{name} has no HMMA in its SASS")
+    return {"phase": "decode_build", "instantiations": recs}
+
+
 def kernel_row(name, source, replaces, launches, row):
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
@@ -1348,6 +1404,7 @@ def main(argv=None) -> int:
           **build_kernels()})
     emit(flash_instantiations())
     emit(topk_instantiations())
+    emit(decode_instantiations())
     rows = kernel_phase(device)
     flash_rows = flash_kernel_phase(device)
     decode_rows = decode_kernel_phase(device)

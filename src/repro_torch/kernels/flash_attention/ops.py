@@ -9,8 +9,9 @@ keeps f32 precision, as in the TPU body; f32 runs as FMA on the CUDA cores.
 The source says why and how.
 
 The bf16 kernel reads q, k and v through 4-D TMA tensor maps (d, seq, head,
-batch) over their own strides; :func:`tensor_map_geometry` computes each
-map's dims, byte strides, box and swizzle here, and raises on what TMA
+batch) over their own strides; :func:`tensor_map_geometry`
+(:mod:`repro_torch.kernels.tma`, shared with the decode kernel) computes
+each map's dims, byte strides, box and swizzle, and raises on what TMA
 refuses (a base that is not 16-byte aligned, a stride that is not a
 multiple of 16 bytes).
 
@@ -28,12 +29,12 @@ neither has this one: inputs that require grad raise.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.tma import TensorMap, tensor_map_geometry
 
 __all__ = ["BLOCK_Q", "HEAD_DIMS", "TensorMap", "block_keys",
            "flash_attention", "launches", "reset_launches",
@@ -85,53 +86,6 @@ def block_keys(d: int) -> int:
     """Keys per K/V tile of the bf16 kernel at head dim ``d``: 64 at d=128
     keeps its accumulators in registers, 128 elsewhere."""
     return 64 if d > 64 else 128
-
-
-@dataclass(frozen=True)
-class TensorMap:
-    """Geometry of one 4-D TMA tensor map over a (B, heads, seq, d) tensor,
-    innermost first, as ``cuTensorMapEncodeTiled`` takes it."""
-    dims: Tuple[int, int, int, int]      # (d, seq, heads, B)
-    strides: Tuple[int, int, int]        # bytes between seq, head, batch
-    box: Tuple[int, int, int, int]       # (columns, rows, 1, 1)
-    swizzle: int                         # bytes of a swizzled row
-
-    def flat(self) -> Tuple[int, ...]:
-        return (*self.dims, *self.strides, *self.box, self.swizzle)
-
-
-def tensor_map_geometry(t: torch.Tensor, rows: int) -> TensorMap:
-    """The tensor map through which the bf16 kernel reads ``t`` (B, heads,
-    seq, d) in boxes of ``rows`` rows.
-
-    A row of the box is d padded to 16 columns (wgmma's k16; TMA fills the
-    columns past d with zeros), swizzled by its width up to 128 bytes; at
-    d = 128 a box is 64 columns and the kernel loads two.  Strides come from
-    the tensor as it is, so transposed views need no copy.  Raises
-    ``ValueError`` on what TMA refuses."""
-    if t.dim() != 4 or t.stride(3) != 1:
-        raise ValueError(f"expected a (B, heads, seq, d) tensor with a "
-                         f"contiguous last dim, got shape {tuple(t.shape)} "
-                         f"strides {t.stride()}")
-    B, heads, L, d = t.shape
-    es = t.element_size()
-    if t.data_ptr() % 16:
-        raise ValueError(f"TMA needs a 16-byte aligned base; this tensor "
-                         f"starts at {t.data_ptr():#x}")
-    strides = []
-    for axis in (2, 1, 0):                       # seq, head, batch
-        nbytes = t.stride(axis) * es
-        if t.shape[axis] == 1:
-            # never stepped over: any stride TMA takes will do
-            nbytes = max(16, -(-nbytes // 16) * 16)
-        elif nbytes <= 0 or nbytes % 16 or nbytes >= 1 << 40:
-            raise ValueError(f"TMA needs strides that are positive "
-                             f"multiples of 16 bytes; axis {axis} of shape "
-                             f"{tuple(t.shape)} steps {nbytes} bytes")
-        strides.append(nbytes)
-    swizzle = min(max(d, 16) * es, 128)
-    return TensorMap(dims=(d, L, heads, B), strides=tuple(strides),
-                     box=(swizzle // es, rows, 1, 1), swizzle=swizzle)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
