@@ -12,9 +12,11 @@ Phases, each printing one JSON line:
                 and the nvcc builds of the kernels from ``src/repro_torch/csrc``
                 (one nvcc per source, started together); then a
                 ``flash_build`` line: each flash instantiation's ptxas
-                registers and spill bytes and its count of ``HGMMA``
-                (tensor-core) instructions from ``cuobjdump -sass`` (every
-                bf16 instantiation must have some and spill nothing); then a
+                registers and spill bytes and its counts of ``HGMMA`` and
+                ``HMMA`` (tensor-core) instructions from ``cuobjdump -sass``
+                and whether ptxas serialised its wgmma (every bf16 and f32
+                instantiation must have some, spill nothing and not be
+                serialised); then a
                 ``topk_build`` line: the same for the topk_mips kernels
                 (``score_f32``, ``score_tc<bf16>``, ``score_tc<int8>``,
                 ``select_topk``), with the warpgroup MMA count by mnemonic
@@ -39,11 +41,12 @@ Phases, each printing one JSON line:
                 kernel's own.
   3. flash    — the flash-attention kernel (f32, bf16) at the LM path's shape
                 (B=4, H=14, KV=2, S=T=2048, d=64, causal, on the trunk's
-                strided views) and, at bf16, the qwen2-72b head geometry
-                (B=1, H=64, KV=8, S=T=2048, d=128), plus the reference's
-                kernel-test cases, held against its plain version on the
-                card, and timed beside it and
-                ``scaled_dot_product_attention`` (the yardstick only).
+                strided views) and the qwen2-72b head geometry (B=1, H=64,
+                KV=8, S=T=2048, d=128), plus the reference's kernel-test
+                cases, held against its plain version on the card, and
+                timed beside it and ``scaled_dot_product_attention`` (the
+                yardstick only); the f32 rows also give ``fma_bound_ms``,
+                the bound of the same two products at the f32 FMA rate.
   3b. decode  — the decode-attention kernel (f32, bf16) against its plain
                 version on the card at the serve path's shape (B=4, KV=2, G=7,
                 d=64, cache 144, lengths 128 and 143), one qwen2-0.5b layer
@@ -67,7 +70,8 @@ Phases, each printing one JSON line:
                 one ledger row per step with the reference's keys, one kernel
                 launch per corpus chunk and checkpoint, and equal f32 metrics
                 between the two impls.
-  6. lm       — full-width qwen2-0.5b (24 layers, random weights from a seed):
+  6. lm       — full-width qwen2-0.5b (24 layers, random weights from a seed;
+                ``--trace`` also traces one f32 and one bf16 forward):
                 (a) ``lm_loss`` and ``forward`` on 4 x 2048 tokens with
                 ``attn_impl`` "cuda" (24 flash launches per forward) and
                 "torch" (none), at f32 and bf16, against each other; each
@@ -118,7 +122,9 @@ import torch  # noqa: E402
 
 # One H100 SXM, NVIDIA's data sheet (dense): HBM rate and peak rates by type
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12,
+              # TF32 on the tensor cores: the f32 flash kernel's products
+              "tf32": 495e12}
 ELEM_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
 REPLACES = {"f32": "src/repro/kernels/topk_mips/kernel.py:135",
             "bf16": "src/repro/kernels/topk_mips/kernel.py:135",
@@ -344,26 +350,35 @@ def kernel_phase(device):
 
 # the LM path's shape: qwen2-0.5b heads, batch 4 x 2048 tokens, causal
 FLASH_PATH = (4, 14, 2, 2048, 2048, 64, True)
-# a second timed bf16 row: qwen2-72b heads (d=128), one sequence of 2048
+# a second timed row: qwen2-72b heads (d=128), one sequence of 2048
 FLASH_D128 = (1, 64, 8, 2048, 2048, 128, True)
 # the cases of tests/test_kernels.py (flash_attention_matches_ref)
 FLASH_CASES = [(2, 4, 2, 64, 64, 32, True), (1, 8, 8, 33, 57, 64, False),
                (2, 2, 1, 128, 256, 128, True), (1, 14, 2, 40, 40, 64, True)]
 
 
-def flash_bound_ms(dt, B, H, KV, S, T, d, causal, t_valid):
+def flash_bound_ms(dt, B, H, KV, S, T, d, causal, t_valid, fma=False):
     """Least time for the work: each input read once and the output written
-    once, against the operations on the pairs the mask leaves.  At bf16 the
-    kernel's arithmetic is three bf16 tensor-core products of 2 * pairs * d
-    FLOP per head (q . k, p_hi . v, p_lo . v: p split in two bf16 halves so
-    it keeps f32 precision); at f32 two products at the f32 rate."""
+    once, against the operations on the pairs the mask leaves.  Each
+    product (q . k or p . v) is 2 * pairs * d FLOP per head.  At bf16 the
+    kernel runs three bf16 tensor-core products (q . k, p_hi . v, p_lo . v:
+    p split in two bf16 halves so it keeps f32 precision); at f32 six TF32
+    tensor-core products (q . k and p . v each as a_hi b_hi + a_hi b_lo +
+    a_lo b_hi, the operands split so the products keep ~2**-22 relative
+    precision).  ``fma``: instead the two products at the f32 FMA rate, the
+    bound of a kernel without tensor cores."""
     nbytes = (2 * B * H * S * d + 2 * B * KV * T * d) * ELEM_BYTES[dt]
     if causal:
         pairs = sum(min(i + 1, t_valid) for i in range(S))
     else:
         pairs = S * t_valid
     flop = 2 * B * H * pairs * d
-    t_ops = (3 if dt == "bf16" else 2) * flop / PEAK_OPS_S[dt]
+    if fma:
+        t_ops = 2 * flop / PEAK_OPS_S["f32"]
+    elif dt == "bf16":
+        t_ops = 3 * flop / PEAK_OPS_S["bf16"]
+    else:
+        t_ops = 6 * flop / PEAK_OPS_S["tf32"]
     t_bytes = nbytes / HBM_BYTES_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
@@ -444,10 +459,10 @@ def flash_kernel_phase(device):
         check(torch.equal(o1, o2), f"flash {dt}: keys past t_valid leak")
         gate("t_valid", o1, q, k, v, causal=False, t_valid=40)
 
-        # the LM path (and at bf16 the d=128 row): transposed views of
-        # (B, S, H, d), as the trunk passes them
-        for name, shape in [("path", FLASH_PATH)] + (
-                [("qwen2_72b_heads", FLASH_D128)] if dt == "bf16" else []):
+        # the LM path and the d=128 row: transposed views of (B, S, H, d),
+        # as the trunk passes them
+        for name, shape in [("path", FLASH_PATH),
+                            ("qwen2_72b_heads", FLASH_D128)]:
             B, H, KV, S, T, d, causal = shape
             q = rand(B, S, H, d, dt=dt).transpose(1, 2)
             k = rand(B, T, KV, d, dt=dt).transpose(1, 2)
@@ -481,6 +496,9 @@ def flash_kernel_phase(device):
                    "library_max_abs_diff": lib_err,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by}
+            if dt == "f32":
+                row["fma_bound_ms"] = flash_bound_ms(
+                    dt, B, H, KV, S, T, d, causal, T, fma=True)[0]
             emit(row)
             if name == "path":
                 rows[dt] = row
@@ -898,11 +916,13 @@ def lm_phase(device, trace: bool = False):
               "launches": {impl: out[impl]["launches"] for impl in out}})
         del out, a, b
     if trace:
-        cfg = dataclasses.replace(full, attn_impl="cuda")
-        with torch.inference_mode():
-            emit(traced("lm_forward_bf16",
-                        lambda: tfm.forward(params, cfg, tokens),
-                        ("flash_fwd",)))
+        for dt in ("f32", "bf16"):
+            cfg = dataclasses.replace(full, compute_dtype=TORCH_DT[dt],
+                                      attn_impl="cuda")
+            with torch.inference_mode():
+                emit(traced(f"lm_forward_{dt}",
+                            lambda: tfm.forward(params, cfg, tokens),
+                            ("flash_fwd",)))
 
     # (b) the card against the CPU: full width, 2 layers, S=256, f32
     cfg2 = dataclasses.replace(full, n_layers=2, compute_dtype=torch.float32,
@@ -1263,9 +1283,11 @@ def build_kernels():
 
 def build_records(lib, names):
     """Each kernel of library ``lib`` whose mangled name matches one of
-    ``names`` (label -> regex): its ptxas registers and spill bytes, and the
-    count of its tensor-core instructions by mnemonic (warpgroup MMA:
-    ``HGMMA``, ``IGMMA``, ...; warp MMA: ``HMMA``) in its SASS from
+    ``names`` (label -> regex): its ptxas registers and spill bytes, whether
+    ptxas serialised its wgmma (``wgmma_serialized``: its "Potential
+    Performance Loss: wgmma.mma_async instructions are serialized" remark),
+    and the count of its tensor-core instructions by mnemonic (warpgroup
+    MMA: ``HGMMA``, ``IGMMA``, ...; warp MMA: ``HMMA``) in its SASS from
     ``cuobjdump -sass`` of the built library ({} per kernel when it has
     none; None without cuobjdump)."""
     import re
@@ -1277,8 +1299,10 @@ def build_records(lib, names):
         return next((k for k, pat in names.items() if re.search(pat, ln)),
                     None)
 
-    out, cur = {}, None
+    out, cur, serialized = {}, None, set()
     for ln in info["log"].splitlines():
+        if "wgmma.mma_async instructions are serialized" in ln:
+            serialized.add(label(ln))
         if "Compiling entry function" in ln:
             name = label(ln)
             cur = out.setdefault(name, {}) if name else None
@@ -1294,7 +1318,8 @@ def build_records(lib, names):
         sass = subprocess.run([tool, "-sass", info["path"]],
                               capture_output=True, text=True,
                               check=True).stdout
-    for rec in out.values():
+    for name, rec in out.items():
+        rec["wgmma_serialized"] = name in serialized
         rec["gmma"] = None if sass is None else {}
     cur = None
     for ln in (sass or "").splitlines():
@@ -1308,9 +1333,11 @@ def build_records(lib, names):
 
 
 def flash_instantiations():
-    """Each flash instantiation's ptxas registers and spill bytes, and the
-    count of ``HGMMA`` (wgmma) instructions in its SASS.  Every bf16
-    instantiation must run on tensor cores and spill nothing."""
+    """Each flash instantiation's ptxas registers and spill bytes, whether
+    ptxas serialised its wgmma, and the counts of ``HGMMA`` (wgmma) and
+    ``HMMA`` (mma.sync) instructions in its SASS.  Every instantiation, bf16
+    and f32, must run on tensor cores, spill nothing and keep its wgmma
+    asynchronous."""
     from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
     recs = build_records("flash_attention", {
         f"flash_fwd_{dt}<{d}>": rf"flash_fwd_{dt}ILi{d}E"
@@ -1318,12 +1345,17 @@ def flash_instantiations():
     for rec in recs.values():
         gmma = rec.pop("gmma")
         rec["hgmma"] = None if gmma is None else gmma.get("HGMMA", 0)
-    for d in HEAD_DIMS:
-        rec = recs.get(f"flash_fwd_bf16<{d}>", {})
-        check(rec.get("spill_bytes") == 0, f"flash_fwd_bf16<{d}>: ptxas "
-              f"reports {rec}")
-        check(rec.get("hgmma", 1) != 0, f"flash_fwd_bf16<{d}> has no HGMMA "
-              "in its SASS")
+        rec["hmma"] = None if gmma is None else gmma.get("HMMA", 0)
+    for dt in ("bf16", "f32"):
+        for d in HEAD_DIMS:
+            name = f"flash_fwd_{dt}<{d}>"
+            rec = recs.get(name, {})
+            check(rec.get("spill_bytes") == 0, f"{name}: ptxas reports {rec}")
+            check(not rec.get("wgmma_serialized"),
+                  f"{name}: ptxas serialised its wgmma")
+            check(rec.get("hgmma") is None
+                  or rec["hgmma"] + rec["hmma"] != 0,
+                  f"{name} has no HGMMA or HMMA in its SASS")
     return {"phase": "flash_build", "instantiations": recs}
 
 

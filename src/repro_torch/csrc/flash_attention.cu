@@ -49,18 +49,52 @@
 //   * Causal tiles wholly above the diagonal are never loaded, and the
 //     heaviest query tiles are scheduled first.
 //
-// f32: flash_fwd_f32, f32 FMA on the CUDA cores.  At the path's shape the
-// two products run at the 67 TFLOP/s non-tensor f32 rate (0.45 ms).  One
-// block of four warps owns (b, h, BQ = 32 query rows) and walks the kv axis
-// in a loop, so the TPU grid's m, l, acc carry lives in registers: each
-// warp owns 8 query rows, with m, l and the row's output dims spread over
-// its lanes.  Per kv tile of BK = 64 keys K and V go to shared memory (K
-// rows padded to d + 1 floats so the lanes' reads of 32 different keys hit
-// 32 banks); lane j scores keys j and j + 32 for the warp's 8 rows; the row
-// max and sum are warp shuffles; p goes to shared memory, where the warp
-// reads it back as broadcast float4s for p . v.  Causal tiles above the
-// diagonal are skipped and the heaviest query tiles go first.  Strides are
-// taken as given (the last dimension contiguous).
+// f32: flash_fwd_f32, on tensor cores as split-TF32 ("3xTF32") products.
+//   * Why operands are split.  The tensor cores' f32 path is TF32, which
+//     keeps 10 mantissa bits: one TF32 product rounds each operand by up to
+//     2^-11 relative, so row 0 of a causal output (v_0 itself) would be off
+//     by ~2e-3 for |v| ~ 4, far outside the 1e-4 gate this port holds the
+//     f32 kernel to.  So each f32 operand x is split into x_hi = tf32(x)
+//     and x_lo = tf32(x - x_hi) (cvt.rna.tf32.f32: round to nearest, ties
+//     away from zero), and a . b is taken as a_hi . b_hi + a_hi . b_lo +
+//     a_lo . b_hi with f32 sums.  The dropped a_lo . b_lo and the rounding
+//     of x_lo are near 2^-22 relative, two orders under the gate.
+//   * What bounds it.  Six TF32 products (three for q . k, three for
+//     p . v): at the LM path's shape 6 x 15.0 GFLOP at the 495 TFLOP/s
+//     TF32 peak, 0.182 ms, against 67 MB of inputs and output (0.020 ms).
+//     Operations bound it (two FMA products at 67 TFLOP/s would be 0.449).
+//   * Design.  The bf16 kernel's skeleton with one more stage between TMA
+//     and wgmma.  One block owns (b, h, BQ = 128 query rows).  Warp 0 of
+//     the first warpgroup issues TMA loads: Q once, then raw K and V tiles
+//     of BK keys (64 at d <= 64, 32 at d = 128) into one landing buffer
+//     each.  Warps 1-3 of that warpgroup are converters: they split Q in
+//     place (q_hi over the raw tile, q_lo beside it; it stays in shared
+//     memory, as a d = 128 pair in registers would spill), and each landed
+//     K / V tile into hi and lo tiles in a ring of split stages (2 at
+//     d <= 64, 1 at d = 128, so every instantiation fits 227 KB), freeing
+//     the landing buffer as soon as it is read; full / empty mbarriers
+//     link the three roles.  Two consumer warpgroups of 64 query rows run
+//     S = q . k^T as three wgmma from shared memory (q_hi k_hi, q_hi k_lo,
+//     q_lo k_hi, k8 steps), mask only tiles that cross t_valid or the
+//     diagonal, apply 1/sqrt(d) log2 e to the f32 scores (so q's split
+//     sees q as it is), and take the online softmax with ex2 in f32; p is
+//     split in registers and p . v runs as three wgmma with A in registers.
+//   * Layouts.  wgmma takes TF32 operands K-major only.  q and k have d
+//     contiguous, so q . k^T reads them as TMA lands them (the split keeps
+//     every element at its swizzled offset).  For p . v the B operand is V,
+//     stored with d contiguous (MN-major), so the converters write v_hi and
+//     v_lo transposed: d rows of BK keys, 128-byte rows swizzled as TMA
+//     would, keys of a warp's store in one row (no bank conflicts).  The S
+//     accumulator holds columns {2t, 2t+1} of each 8 columns in thread t of
+//     a quad, where a TF32 A fragment holds {t, t + 4}; the remedy taken is
+//     to permute keys inside each 8-key group of V^T (key 2t at column t,
+//     key 2t + 1 at column t + 4), so p goes from the accumulator to the A
+//     fragment with no shuffle.
+//   * Causal tiles wholly above the diagonal are never loaded, a consumer
+//     warpgroup skips tiles above its own rows, and the heaviest query
+//     tiles are scheduled first.  Tiles are assigned to warpgroups
+//     statically, with no atomics and no split across blocks, so a result
+//     does not change from run to run.
 //
 // Every d in {8, 16, 32, 64, 128} has its own instantiation of each.  Each
 // entry point returns cudaGetLastError() after its launch; it allocates
@@ -72,197 +106,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 // Element strides of the batch, head and sequence axes of one tensor.
 struct Strides {
   long long b, h, s;
 };
-
-// ---------------------------------------------------------------------------
-// f32: FMA on the CUDA cores
-// ---------------------------------------------------------------------------
-
-namespace f32 {
-
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int ROWS = 8;              // query rows per warp
-constexpr int BQ = WARPS * ROWS;     // query rows per block
-constexpr int BK = 64;               // keys per shared-memory tile
-constexpr unsigned FULL = 0xffffffffu;
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * D + BK * (D + 1) + BK * D + BQ * BK);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, Strides sq,
-              Strides sk, Strides sv, Strides so, int BH, int H, int group,
-              int S, int T, int t_valid, int causal, float scale) {
-  constexpr int NT = (D + 31) / 32;  // output dims per lane
-  constexpr int KS = D + 1;          // padded row stride of the K tile
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                  // BQ x D: q * scale
-  float* Ks = Qs + BQ * D;           // BK x KS
-  float* Vs = Ks + BK * KS;          // BK x D
-  float* Ps = Vs + BK * D;           // BQ x BK
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int bh = blockIdx.x % BH;
-  const int qt = n_qt - 1 - blockIdx.x / BH;  // heaviest causal tiles first
-  const int b = bh / H, h = bh % H;
-  const int q0 = qt * BQ;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + (h / group) * sk.h;
-  const float* vb = v + b * sv.b + (h / group) * sv.h;
-
-  for (int e = threadIdx.x; e < BQ * D; e += THREADS) {
-    const int r = e / D, i = e % D;
-    Qs[e] = q0 + r < S ? qb[(q0 + r) * sq.s + i] * scale : 0.f;
-  }
-  int kend = t_valid;
-  if (causal) kend = min(kend, min(q0 + BQ, S));  // last row's qpos + 1
-
-  float m[ROWS], l[ROWS], acc[ROWS][NT];
-#pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) acc[rr][t] = 0.f;
-  }
-  const float* Qw = Qs + warp * ROWS * D;
-  float* Pw = Ps + warp * ROWS * BK;
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // Qs is written / the previous tile is consumed
-    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
-      const int r = e / D, i = e % D;
-      const bool in = k0 + r < T;
-      Ks[r * KS + i] = in ? kb[(k0 + r) * sk.s + i] : 0.f;
-      Vs[r * D + i] = in ? vb[(k0 + r) * sv.s + i] : 0.f;
-    }
-    __syncthreads();
-
-    float s[ROWS][2];
-#pragma unroll
-    for (int rr = 0; rr < ROWS; ++rr) s[rr][0] = s[rr][1] = 0.f;
-#pragma unroll 2
-    for (int i = 0; i < D; i += 4) {
-      float ka[4], kc[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        ka[u] = Ks[lane * KS + i + u];
-        kc[u] = Ks[(lane + 32) * KS + i + u];
-      }
-#pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) {
-        const float4 qv = *reinterpret_cast<const float4*>(Qw + rr * D + i);
-        s[rr][0] = fmaf(qv.x, ka[0], s[rr][0]);
-        s[rr][0] = fmaf(qv.y, ka[1], s[rr][0]);
-        s[rr][0] = fmaf(qv.z, ka[2], s[rr][0]);
-        s[rr][0] = fmaf(qv.w, ka[3], s[rr][0]);
-        s[rr][1] = fmaf(qv.x, kc[0], s[rr][1]);
-        s[rr][1] = fmaf(qv.y, kc[1], s[rr][1]);
-        s[rr][1] = fmaf(qv.z, kc[2], s[rr][1]);
-        s[rr][1] = fmaf(qv.w, kc[3], s[rr][1]);
-      }
-    }
-
-#pragma unroll
-    for (int rr = 0; rr < ROWS; ++rr) {
-      const int qpos = q0 + warp * ROWS + rr;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + lane + 32 * j;
-        if (kpos >= t_valid || (causal && kpos > qpos)) s[rr][j] = -INFINITY;
-      }
-      float mx = fmaxf(s[rr][0], s[rr][1]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-      const float m_new = fmaxf(m[rr], mx);
-      // a row with no valid key yet keeps p = 0 instead of exp(nan)
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      const float p0 = expf(s[rr][0] - base), p1 = expf(s[rr][1] - base);
-      const float corr = expf(m[rr] - base);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(FULL, sum, off);
-      l[rr] = l[rr] * corr + sum;
-      m[rr] = m_new;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) acc[rr][t] *= corr;
-      Pw[rr * BK + lane] = p0;
-      Pw[rr * BK + lane + 32] = p1;
-    }
-    __syncwarp();
-
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float vv[4][NT];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const int j = lane + 32 * t;
-          vv[u][t] = j < D ? Vs[(kk + u) * D + j] : 0.f;
-        }
-#pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) {
-        const float4 pv = *reinterpret_cast<const float4*>(Pw + rr * BK + kk);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          acc[rr][t] = fmaf(pv.x, vv[0][t], acc[rr][t]);
-          acc[rr][t] = fmaf(pv.y, vv[1][t], acc[rr][t]);
-          acc[rr][t] = fmaf(pv.z, vv[2][t], acc[rr][t]);
-          acc[rr][t] = fmaf(pv.w, vv[3][t], acc[rr][t]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) {
-    const int r = q0 + warp * ROWS + rr;
-    if (r >= S) continue;
-    const float safe = l[rr] > 0.f ? l[rr] : 1.f;
-    float* orow = o + b * so.b + h * so.h + r * so.s;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = lane + 32 * t;
-      if (j < D) orow[j] = acc[rr][t] / safe;
-    }
-  }
-}
-
-template <int D>
-int run(const void* q, const void* k, const void* v, void* o,
-        const long long* st, int B, int H, int KV, int S, int T, int t_valid,
-        int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_f32<D>;
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int BH = B * H;
-  const int n_qt = (S + BQ - 1) / BQ;
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
-      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  kernel<<<BH * n_qt, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
-      BH, H, H / KV, S, T, t_valid, causal, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma tensor-core products fed by a TMA ring
@@ -390,152 +241,67 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d (64 x 64) = (scale_d ? d : 0) + A (64 x 16) . B (16 x 64), f32 sums;
-// A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
+// wgmma wrappers, one per accumulator shape: FN(d, a, b[, scale_d]) with
+// d (64 x N) f32 accumulators in registers, TYPE the k step and operand
+// types, TAIL the immediates (scale-a, scale-b and, for 16-bit operands,
+// the transpose bits of A and B).
+#define WG_REGS8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_REGS16 WG_REGS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_REGS32                                                        \
+  WG_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, "                 \
+            "%24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_REGS64                                                        \
+  WG_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, "                 \
+            "%40, %41, %42, %43, %44, %45, %46, %47, "                   \
+            "%48, %49, %50, %51, %52, %53, %54, %55, "                   \
+            "%56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_ACC8(o)                                                       \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),            \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define WG_OUT8 WG_ACC8(0)
+#define WG_OUT16 WG_OUT8, WG_ACC8(8)
+#define WG_OUT32 WG_OUT16, WG_ACC8(16), WG_ACC8(24)
+#define WG_OUT64 WG_OUT32, WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
 
-// d (64 x 128) = (scale_d ? d : 0) + A (64 x 16) . B (16 x 128), f32 sums;
-// A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
-                                         uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
+// d = (scale_d ? d : 0) + A . B, A and B in shared memory (descriptors)
+#define WGMMA_SS(FN, TYPE, TAIL, N, NR, A, B, P)                           \
+  __device__ __forceinline__ void FN(float(&d)[NR], uint64_t a,            \
+                                     uint64_t b, int scale_d) {            \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N TYPE " "           \
+                 "{" WG_REGS##NR "}, " A ", " B ", p, " TAIL ";\n}\n"     \
+                 : WG_OUT##NR                                              \
+                 : "l"(a), "l"(b), "r"(scale_d));                          \
+  }
 
-// d (64 x 16) += A (64 x 16, bf16 in registers) . B (16 x 16), f32 sums;
-// B MN-major in shared memory (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[8],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+// d += A . B, A in registers (four 32-bit registers a thread), B in
+// shared memory
+#define WGMMA_RS(FN, TYPE, TAIL, N, NR, A0, A1, A2, A3, B, P)              \
+  __device__ __forceinline__ void FN(float(&d)[NR], const uint32_t(&a)[4], \
+                                     uint64_t b) {                         \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N TYPE " "           \
+                 "{" WG_REGS##NR "}, {" A0 ", " A1 ", " A2 ", " A3 "}, " B \
+                 ", p, " TAIL ";\n}\n"                                     \
+                 : WG_OUT##NR                                              \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),     \
+                   "r"(1));                                                \
+  }
 
-// d (64 x 32) += A (64 x 16, bf16 in registers) . B (16 x 32), f32 sums;
-// B MN-major in shared memory (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[16],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64) += A (64 x 16, bf16 in registers) . B (16 x 64), f32 sums;
-// B MN-major in shared memory (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 128) += A (64 x 16, bf16 in registers) . B (16 x 128), f32 sums;
-// B MN-major in shared memory (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+// bf16, k16: A and B K-major for q . k^T; for p . v, B (V) MN-major (the
+// transpose bit of B set)
+#define BF16 "k16.f32.bf16.bf16"
+WGMMA_SS(wgmma_ss, BF16, "1, 1, 0, 0", 64, 32, "%32", "%33", "%34")
+WGMMA_SS(wgmma_ss, BF16, "1, 1, 0, 0", 128, 64, "%64", "%65", "%66")
+WGMMA_RS(wgmma_rs, BF16, "1, 1, 1", 16, 8, "%8", "%9", "%10", "%11", "%12",
+         "%13")
+WGMMA_RS(wgmma_rs, BF16, "1, 1, 1", 32, 16, "%16", "%17", "%18", "%19",
+         "%20", "%21")
+WGMMA_RS(wgmma_rs, BF16, "1, 1, 1", 64, 32, "%32", "%33", "%34", "%35",
+         "%36", "%37")
+WGMMA_RS(wgmma_rs, BF16, "1, 1, 1", 128, 64, "%64", "%65", "%66", "%67",
+         "%68", "%69")
+#undef BF16
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -762,6 +528,433 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32: split-TF32 wgmma products fed by a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int CONVERTERS = 96;  // warps 1-3 of the producer warpgroup
+constexpr int IN_FLIGHT = 4;    // 16-byte loads a converter keeps in flight
+
+template <int D>
+struct GeoF32 {
+  static constexpr int DP = D < 16 ? 16 : D;              // d padded to 16
+  static constexpr int SW = DP * 4 < 128 ? DP * 4 : 128;  // row bytes = swizzle
+  static constexpr int CB = SW / 4;                       // columns per box
+  static constexpr int BK = D > 64 ? 32 : 64;             // keys per tile
+  static constexpr int STAGES = D > 64 ? 1 : 2;           // split-tile ring
+  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr uint32_t Q_BYTES = BQ * DP * 4;
+  static constexpr uint32_t KV_BYTES = BK * DP * 4;
+  // q_hi (Q lands there) and q_lo, raw K and V, STAGES x (k_hi, k_lo,
+  // v^T_hi, v^T_lo), all aligned to the 1024-byte swizzle period, then the
+  // 6 + 4 * STAGES mbarriers
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES +
+                                 (2 + 4 * STAGES) * KV_BYTES +
+                                 8 * (6 + 4 * STAGES);
+  static_assert(SMEM <= 232448, "over the 227 KB a block may use");
+  static_assert(BK % 32 == 0, "V^T rows are 128-byte boxes of 32 keys");
+};
+
+// Shared-memory offset of logical byte o of a tile whose rows are swizzled
+// by their width SW, as TMA writes them and wgmma reads them: bits 4.. (the
+// 16-byte chunk) XOR bits 7.. of the offset from a 1024-byte boundary.
+template <int SW>
+__device__ __forceinline__ uint32_t swz(uint32_t o) {
+  return o ^ ((o >> 3) & ((SW / 16 - 1) << 4));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as an f32 with its low 13 bits zero: half a unit of the 13 dropped
+// bits is added to the magnitude, then they are cleared.  This is the
+// rounding of cvt.rna.tf32.f32, bit for bit on every input that is not a
+// NaN (a NaN stays a NaN or becomes an infinity, and the output is NaN
+// either way), in two integer instructions where cvt.rna compiles to a
+// longer sequence.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t a, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void sts32(uint32_t a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+}
+
+// The converters' shared-memory writes become visible to wgmma (the async
+// proxy) before they signal a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// hi and lo of each f32 of [src, src + bytes) at the same offsets (hi may
+// be src): the swizzled layout is kept as it is.  IN_FLIGHT loads are
+// issued before the first store.
+__device__ __forceinline__ void split_tile(uint32_t src, uint32_t hi,
+                                           uint32_t lo, uint32_t bytes,
+                                           int ct) {
+  constexpr uint32_t STEP = 16 * CONVERTERS;
+  for (uint32_t o0 = 16 * ct; o0 < bytes; o0 += STEP * IN_FLIGHT) {
+    float4 x[IN_FLIGHT];
+#pragma unroll
+    for (int u = 0; u < IN_FLIGHT; ++u)
+      if (o0 + u * STEP < bytes) x[u] = lds128(src + o0 + u * STEP);
+#pragma unroll
+    for (int u = 0; u < IN_FLIGHT; ++u) {
+      const uint32_t o = o0 + u * STEP;
+      if (o >= bytes) break;
+      float4 h, l;
+      h.x = tf32_rna(x[u].x);
+      h.y = tf32_rna(x[u].y);
+      h.z = tf32_rna(x[u].z);
+      h.w = tf32_rna(x[u].w);
+      l.x = tf32_rna(x[u].x - h.x);
+      l.y = tf32_rna(x[u].y - h.y);
+      l.z = tf32_rna(x[u].z - h.z);
+      l.w = tf32_rna(x[u].w - h.w);
+      sts128(hi + o, h);
+      sts128(lo + o, l);
+    }
+  }
+}
+
+// V (BK keys x DP columns, SW-byte rows in boxes of SW / 4 columns) into
+// V^T hi and lo: DP rows of BK keys, 128-byte swizzled rows in boxes of 32
+// keys (DP x 128 bytes each), K-major for wgmma.  Inside each 8-key group
+// key 2t goes to column t and key 2t + 1 to column t + 4: the S
+// accumulator's columns in the TF32 A fragment's places.  A warp handles 32
+// consecutive keys of one 4-column chunk, so each of its stores fills one
+// 128-byte row.
+template <int DP, int SW, int BK>
+__device__ __forceinline__ void split_v(uint32_t src, uint32_t hi,
+                                        uint32_t lo, int ct) {
+  constexpr int CB = SW / 4, N = BK * DP / 4;
+  for (int e0 = ct; e0 < N; e0 += CONVERTERS * IN_FLIGHT) {
+    float4 x[IN_FLIGHT];
+#pragma unroll
+    for (int u = 0; u < IN_FLIGHT; ++u) {
+      const int e = e0 + u * CONVERTERS;
+      const int r = e % BK, c = e / BK * 4;  // key, first of four columns
+      if (e < N)
+        x[u] = lds128(src + swz<SW>(c / CB * BK * SW + r * SW + c % CB * 4));
+    }
+#pragma unroll
+    for (int u = 0; u < IN_FLIGHT; ++u) {
+      const int e = e0 + u * CONVERTERS;
+      if (e >= N) break;
+      const int r = e % BK, c = e / BK * 4;
+      const int kk = (r & ~7) | (r & 7) >> 1 | (r & 1) << 2;
+      const uint32_t col = kk / 32 * DP * 128 + kk % 32 * 4;
+      const float xs[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t a = swz<128>(col + (c + i) * 128);
+        const float h = tf32_rna(xs[i]);
+        sts32(hi + a, h);
+        sts32(lo + a, tf32_rna(xs[i] - h));
+      }
+    }
+  }
+}
+
+// TF32, k8: K-major operands only (TF32 has no transpose bits)
+#define TF32 "k8.f32.tf32.tf32"
+WGMMA_SS(wgmma_tf32_ss, TF32, "1, 1", 32, 16, "%16", "%17", "%18")
+WGMMA_SS(wgmma_tf32_ss, TF32, "1, 1", 64, 32, "%32", "%33", "%34")
+WGMMA_RS(wgmma_tf32_rs, TF32, "1, 1", 16, 8, "%8", "%9", "%10", "%11", "%12",
+         "%13")
+WGMMA_RS(wgmma_tf32_rs, TF32, "1, 1", 32, 16, "%16", "%17", "%18", "%19",
+         "%20", "%21")
+WGMMA_RS(wgmma_tf32_rs, TF32, "1, 1", 64, 32, "%32", "%33", "%34", "%35",
+         "%36", "%37")
+WGMMA_RS(wgmma_tf32_rs, TF32, "1, 1", 128, 64, "%64", "%65", "%66", "%67",
+         "%68", "%69")
+#undef TF32
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_f32(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+              Strides so, int BH, int H, int group, int S, int t_valid,
+              int causal, float scale_log2) {
+  using G = GeoF32<D>;
+  constexpr int BK = G::BK, DP = G::DP, SW = G::SW, CB = G::CB;
+  constexpr int ST = G::STAGES;
+  constexpr uint32_t KVB = G::KV_BYTES;
+  constexpr int NS = BK / 2;  // S accumulators per thread (64 x BK)
+  constexpr int NO = DP / 2;  // output accumulators per thread (64 x DP)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;  // q_hi
+  const uint32_t sQl = sQ + G::Q_BYTES;                        // q_lo
+  const uint32_t sKr = sQl + G::Q_BYTES;                       // raw K
+  const uint32_t sVr = sKr + KVB;                              // raw V
+  const uint32_t sS = sVr + KVB;  // ST x (k_hi, k_lo, v^T_hi, v^T_lo)
+  auto k_hi = [&](int s) { return sS + (4 * s) * KVB; };
+  auto k_lo = [&](int s) { return sS + (4 * s + 1) * KVB; };
+  auto v_hi = [&](int s) { return sS + (4 * s + 2) * KVB; };
+  auto v_lo = [&](int s) { return sS + (4 * s + 3) * KVB; };
+  const uint32_t q_full = sS + 4 * ST * KVB, q_ready = q_full + 8;
+  const uint32_t kr_full = q_full + 16, kr_empty = q_full + 24;
+  const uint32_t vr_full = q_full + 32, vr_empty = q_full + 40;
+  auto ks_full = [&](int s) { return q_full + 8 * (6 + s); };
+  auto ks_empty = [&](int s) { return q_full + 8 * (6 + ST + s); };
+  auto vs_full = [&](int s) { return q_full + 8 * (6 + 2 * ST + s); };
+  auto vs_empty = [&](int s) { return q_full + 8 * (6 + 3 * ST + s); };
+
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int bh = blockIdx.x % BH;
+  const int qt = n_qt - 1 - blockIdx.x / BH;  // heaviest causal tiles first
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * BQ;
+  int kend = t_valid;
+  if (causal) kend = min(kend, min(q0 + BQ, S));  // last row's qpos + 1
+  const int n_kt = (kend + BK - 1) / BK;
+  // the warpgroup, broadcast so that the compiler knows it is the same in
+  // every lane: otherwise ptxas finds the consumers' wgmma on a divergent
+  // path and serialises them (its C7520 remark)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_ready, CONVERTERS);
+    mbar_init(kr_full, 1);
+    mbar_init(kr_empty, CONVERTERS);
+    mbar_init(vr_full, 1);
+    mbar_init(vr_empty, CONVERTERS);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(ks_full(s), CONVERTERS);
+      mbar_init(ks_empty(s), CONSUMERS);
+      mbar_init(vs_full(s), CONVERTERS);
+      mbar_init(vs_empty(s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;");
+    if (threadIdx.x < 32) {
+      // producer: one thread keeps the landing buffers full
+      if (threadIdx.x == 0) {
+        const int kvh = h / group;
+        mbar_expect_tx(q_full, G::Q_BYTES);
+        for (int c = 0; c < DP / CB; ++c)
+          tma_load(sQ + c * BQ * SW, &tq, q_full, c * CB, q0, h, b);
+        for (int i = 0; i < n_kt; ++i) {
+          const uint32_t free_parity = (i & 1) ^ 1;
+          mbar_wait(kr_empty, free_parity);
+          mbar_expect_tx(kr_full, KVB);
+          for (int c = 0; c < DP / CB; ++c)
+            tma_load(sKr + c * BK * SW, &tk, kr_full, c * CB, i * BK, kvh,
+                     b);
+          mbar_wait(vr_empty, free_parity);
+          mbar_expect_tx(vr_full, KVB);
+          for (int c = 0; c < DP / CB; ++c)
+            tma_load(sVr + c * BK * SW, &tv, vr_full, c * CB, i * BK, kvh,
+                     b);
+        }
+      }
+      return;
+    }
+    // converters: split Q once, then each landed K / V tile into the ring
+    const int ct = threadIdx.x - 32;
+    mbar_wait(q_full, 0);
+    split_tile(sQ, sQ, sQl, G::Q_BYTES, ct);
+    fence_proxy_async();
+    mbar_arrive(q_ready);
+    for (int i = 0; i < n_kt; ++i) {
+      const int s = i % ST;
+      const uint32_t raw_parity = i & 1;
+      const uint32_t free_parity = ((i / ST) & 1) ^ 1;
+      mbar_wait(kr_full, raw_parity);
+      mbar_wait(ks_empty(s), free_parity);
+      split_tile(sKr, k_hi(s), k_lo(s), KVB, ct);
+      fence_proxy_async();
+      mbar_arrive(kr_empty);
+      mbar_arrive(ks_full(s));
+      mbar_wait(vr_full, raw_parity);
+      mbar_wait(vs_empty(s), free_parity);
+      split_v<DP, SW, BK>(sVr, v_hi(s), v_lo(s), ct);
+      fence_proxy_async();
+      mbar_arrive(vr_empty);
+      mbar_arrive(vs_full(s));
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows wq0 .. wq0 + 63; in the wgmma
+  // accumulator layout thread (warp, g = lane / 4, c = lane % 4) holds rows
+  // row0 and row0 + 8, columns 8j + 2c and 8j + 2c + 1 of each 8 columns j
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;");
+  const int cw = wg - 1;
+  const int t = threadIdx.x - 128 * wg;
+  const int warp = t / 32, lane = t % 32, g = lane / 4, c2 = 2 * (lane % 4);
+  const int wq0 = q0 + 64 * cw;
+  const int row0 = wq0 + 16 * warp + g;
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(q_ready, 0);
+
+  // causal: the tiles at or below this warpgroup's diagonal are a prefix
+  const int n_mine = causal ? min(n_kt, (wq0 + 63) / BK + 1) : n_kt;
+  for (int i = 0; i < n_mine; ++i) {
+    const int s = i % ST;
+    const uint32_t parity = (i / ST) & 1;
+    const int k0 = i * BK;
+
+    // S = q_hi k_hi + q_hi k_lo + q_lo k_hi (raw scores, f32 sums)
+    float sc[NS];
+    mbar_wait(ks_full(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 8; ++ks) {
+      const uint32_t qo = ks * 8 / CB * BQ * SW + cw * 64 * SW + ks * 8 % CB * 4;
+      const uint32_t ko = ks * 8 / CB * BK * SW + ks * 8 % CB * 4;
+      const uint64_t qh = smem_desc(sQ + qo, 16, 8 * SW, G::LAYOUT);
+      const uint64_t ql = smem_desc(sQl + qo, 16, 8 * SW, G::LAYOUT);
+      const uint64_t kh = smem_desc(k_hi(s) + ko, 16, 8 * SW, G::LAYOUT);
+      const uint64_t kl = smem_desc(k_lo(s) + ko, 16, 8 * SW, G::LAYOUT);
+      wgmma_tf32_ss(sc, qh, kh, ks > 0);
+      wgmma_tf32_ss(sc, qh, kl, 1);
+      wgmma_tf32_ss(sc, ql, kh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(sc);
+    mbar_arrive(ks_empty(s));
+
+    // masks, only where the tile crosses t_valid or the diagonal
+    if (k0 + BK > t_valid || (causal && k0 + BK - 1 > wq0)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = k0 + 8 * j + c2 + e;
+            if (kpos >= t_valid || (causal && kpos > row0 + 8 * r))
+              sc[4 * j + 2 * r + e] = -INFINITY;
+          }
+    }
+
+    // online softmax in the log2 domain: p = 2^(s * scale_log2 - m)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        mx[r] = fmaxf(mx[r], fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    float base[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      // a row with no valid key yet keeps p = 0 instead of exp(nan)
+      base[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = exp2_approx(m[r] - base[r]);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * r + e];
+          x = exp2_approx(fmaf(x, scale_log2, -base[r]));
+          sum[r] += x;
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        acc[4 * j + 2 * r] *= corr[r];
+        acc[4 * j + 2 * r + 1] *= corr[r];
+      }
+
+    // p = p_hi + p_lo as TF32 A fragments of keys 8j .. 8j + 7: (row g,
+    // column c), (g + 8, c), (g, c + 4), (g + 8, c + 4) for c = lane % 4,
+    // where column c holds key 2c and column c + 4 key 2c + 1 (V^T's order)
+    uint32_t hi[BK / 8][4], lo[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float x[4] = {sc[4 * j], sc[4 * j + 2], sc[4 * j + 1],
+                          sc[4 * j + 3]};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float ph = tf32_rna(x[u]);
+        hi[j][u] = __float_as_uint(ph);
+        lo[j][u] = __float_as_uint(tf32_rna(x[u] - ph));
+      }
+    }
+
+    // acc += p_hi v_hi + p_hi v_lo + p_lo v_hi
+    mbar_wait(vs_full(s), parity);
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const uint32_t vo = j * 8 / 32 * DP * 128 + j * 8 % 32 * 4;
+      const uint64_t vh = smem_desc(v_hi(s) + vo, 16, 1024, 1);
+      const uint64_t vl = smem_desc(v_lo(s) + vo, 16, 1024, 1);
+      wgmma_tf32_rs(acc, hi[j], vh);
+      wgmma_tf32_rs(acc, hi[j], vl);
+      wgmma_tf32_rs(acc, lo[j], vh);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(acc);
+    reg_fence(hi);
+    reg_fence(lo);
+    mbar_arrive(vs_empty(s));
+  }
+  // tiles wholly above this warpgroup's diagonal: only free their slots
+  for (int i = n_mine; i < n_kt; ++i) {
+    const int s = i % ST;
+    const uint32_t parity = (i / ST) & 1;
+    mbar_wait(ks_full(s), parity);
+    mbar_arrive(ks_empty(s));
+    mbar_wait(vs_full(s), parity);
+    mbar_arrive(vs_empty(s));
+  }
+
+  // epilogue: acc / l in f32, through o's strides
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float safe = lt > 0.f ? lt : 1.f;
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    float* orow = o + b * so.b + h * so.h + row * so.s;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + c2;
+      if (col < D)
+        *reinterpret_cast<float2*>(orow + col) = make_float2(
+            acc[4 * j + 2 * r] / safe, acc[4 * j + 2 * r + 1] / safe);
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -786,21 +979,20 @@ EncodeTiled encoder() {
 // or it refused a map (-CUresult).
 constexpr int NO_ENCODER = -999;
 
-// geo: for q, k, v in turn 12 values: dims (d, seq, head, batch), byte
-// strides of seq, head, batch, box (columns, rows, 1, 1), swizzle bytes.
-template <int D>
-int run(const void* q, const void* k, const void* v, void* o,
-        const long long* so, const long long* geo, int B, int H, int KV,
-        int S, int t_valid, int causal, float scale, cudaStream_t stream) {
-  using G = Geo<D>;
+// The tensor maps of q, k and v.  geo: for each in turn 12 values: dims (d,
+// seq, head, batch), byte strides of seq, head, batch, box (columns, rows,
+// 1, 1), swizzle bytes; they must be those of a kernel whose boxes are cb
+// columns by bq (q) or bk (k, v) rows, swizzled by sw bytes.
+int encode_maps(CUtensorMap (&maps)[3], const void* q, const void* k,
+                const void* v, const long long* geo, int d, int cb, int bq,
+                int bk, int sw, CUtensorMapDataType type) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return NO_ENCODER;
   const void* base[3] = {q, k, v};
-  CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
     const long long* g = geo + 12 * i;
-    if (g[0] != D || g[7] != G::CB || g[8] != (i == 0 ? BQ : G::BK) ||
-        g[9] != 1 || g[10] != 1 || g[11] != G::SW)
+    if (g[0] != d || g[7] != cb || g[8] != (i == 0 ? bq : bk) ||
+        g[9] != 1 || g[10] != 1 || g[11] != sw)
       return cudaErrorInvalidValue;  // the wrapper's geometry disagrees
     const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1],
                                 (cuuint64_t)g[2], (cuuint64_t)g[3]};
@@ -809,26 +1001,51 @@ int run(const void* q, const void* k, const void* v, void* o,
     const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8], 1, 1};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
     const CUresult res = encode(
-        &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-        const_cast<void*>(base[i]), dims, strides, box, unit,
-        CU_TENSOR_MAP_INTERLEAVE_NONE,
-        G::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-        : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                      : CU_TENSOR_MAP_SWIZZLE_32B,
+        &maps[i], type, 4, const_cast<void*>(base[i]), dims, strides, box,
+        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+        : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                   : CU_TENSOR_MAP_SWIZZLE_32B,
         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of bounds reads zeros
     if (res != CUDA_SUCCESS) return -static_cast<int>(res);
   }
-  auto kernel = flash_fwd_bf16<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
-  if (err != cudaSuccess) return err;
+  return 0;
+}
+
+// One kernel launch over (b, h, query tiles of BQ rows) for head dim D:
+// bf16 (Geo) or f32 (GeoF32).
+template <int D, bool F32>
+int run(const void* q, const void* k, const void* v, void* o,
+        const long long* so, const long long* geo, int B, int H, int KV,
+        int S, int t_valid, int causal, float scale, cudaStream_t stream) {
+  using G = typename std::conditional<F32, GeoF32<D>, Geo<D>>::type;
+  CUtensorMap maps[3];
+  const int rc = encode_maps(
+      maps, q, k, v, geo, D, G::CB, BQ, G::BK, G::SW,
+      F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  if (rc != 0) return rc;
   const int BH = B * H;
   const int n_qt = (S + BQ - 1) / BQ;
-  kernel<<<BH * n_qt, THREADS, G::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o),
-      Strides{so[0], so[1], so[2]}, BH, H, H / KV, S, t_valid, causal,
-      scale * LOG2E);
+  const Strides st{so[0], so[1], so[2]};
+  cudaError_t err;
+  if constexpr (F32) {
+    err = cudaFuncSetAttribute(flash_fwd_f32<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)G::SMEM);
+    if (err != cudaSuccess) return err;
+    flash_fwd_f32<D><<<BH * n_qt, THREADS, G::SMEM, stream>>>(
+        maps[0], maps[1], maps[2], static_cast<float*>(o), st, BH, H, H / KV,
+        S, t_valid, causal, scale * LOG2E);
+  } else {
+    err = cudaFuncSetAttribute(flash_fwd_bf16<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)G::SMEM);
+    if (err != cudaSuccess) return err;
+    flash_fwd_bf16<D><<<BH * n_qt, THREADS, G::SMEM, stream>>>(
+        maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), st, BH, H,
+        H / KV, S, t_valid, causal, scale * LOG2E);
+  }
   return cudaGetLastError();
 }
 
@@ -836,44 +1053,35 @@ int run(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// f32.  strides: 12 element strides (batch, head, sequence) of q, k, v and
-// o, in that order; the last dimension of each is contiguous.
-extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o,
-                                   const long long* strides, int B, int H,
-                                   int KV, int S, int T, int D, int t_valid,
-                                   int causal, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-#define CASE(d)                                                          \
-  case d:                                                                \
-    return f32::run<d>(q, k, v, o, strides, B, H, KV, S, T, t_valid,     \
-                       causal, scale, st);
-    CASE(8) CASE(16) CASE(32) CASE(64) CASE(128)
-#undef CASE
-    default:
-      return cudaErrorInvalidValue;
+// Both entry points.  o_strides: the element strides (batch, head,
+// sequence) of o; geo: the tensor-map geometry of q, k and v (see
+// tc::encode_maps).  Returns a cudaError_t, or a negative value when no
+// tensor map could be encoded.
+#define ENTRY(name, f32)                                                   \
+  extern "C" int name(const void* q, const void* k, const void* v, void* o, \
+                      const long long* o_strides, const long long* geo,    \
+                      int B, int H, int KV, int S, int D, int t_valid,     \
+                      int causal, float scale, void* stream) {             \
+    cudaStream_t st = static_cast<cudaStream_t>(stream);                   \
+    switch (D) {                                                           \
+      case 8:                                                              \
+        return tc::run<8, f32>(q, k, v, o, o_strides, geo, B, H, KV, S,    \
+                               t_valid, causal, scale, st);                \
+      case 16:                                                             \
+        return tc::run<16, f32>(q, k, v, o, o_strides, geo, B, H, KV, S,   \
+                                t_valid, causal, scale, st);               \
+      case 32:                                                             \
+        return tc::run<32, f32>(q, k, v, o, o_strides, geo, B, H, KV, S,   \
+                                t_valid, causal, scale, st);               \
+      case 64:                                                             \
+        return tc::run<64, f32>(q, k, v, o, o_strides, geo, B, H, KV, S,   \
+                                t_valid, causal, scale, st);               \
+      case 128:                                                            \
+        return tc::run<128, f32>(q, k, v, o, o_strides, geo, B, H, KV, S,  \
+                                 t_valid, causal, scale, st);              \
+      default:                                                             \
+        return cudaErrorInvalidValue;                                      \
+    }                                                                      \
   }
-}
-
-// bf16.  o_strides: the element strides (batch, head, sequence) of o; geo:
-// the tensor-map geometry of q, k and v (see tc::run).  Returns a
-// cudaError_t, or a negative value when no tensor map could be encoded.
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o,
-                                    const long long* o_strides,
-                                    const long long* geo, int B, int H,
-                                    int KV, int S, int D, int t_valid,
-                                    int causal, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-#define CASE(d)                                                          \
-  case d:                                                                \
-    return tc::run<d>(q, k, v, o, o_strides, geo, B, H, KV, S, t_valid,  \
-                      causal, scale, st);
-    CASE(8) CASE(16) CASE(32) CASE(64) CASE(128)
-#undef CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
+ENTRY(flash_attention_f32, true)
+ENTRY(flash_attention_bf16, false)

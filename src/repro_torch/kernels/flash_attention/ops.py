@@ -3,12 +3,15 @@
 The kernels replace the Pallas TPU kernel of the reference
 (``src/repro/kernels/flash_attention/kernel.py``: ``flash_attention_kernel``,
 body ``_flash_kernel``).  At the LM path's shape both are bound by
-operations.  bf16 runs on tensor cores (``wgmma``) fed by TMA loads: q . k,
-and p . v with p split into two bf16 halves (``p_hi + p_lo``) so that p
-keeps f32 precision, as in the TPU body; f32 runs as FMA on the CUDA cores.
-The source says why and how.
+operations, and both run on tensor cores (``wgmma``) fed by TMA loads.
+bf16: q . k, and p . v with p split into two bf16 halves (``p_hi + p_lo``)
+so that p keeps f32 precision, as in the TPU body.  f32: q . k and p . v as
+split-TF32 products (each operand x as ``tf32(x) + tf32(x - tf32(x))``,
+three TF32 products per product), which keep them to ~2**-22 relative.
+The source says why and how.  No global PyTorch flag is set: the TF32
+arithmetic is the kernel's own.
 
-The bf16 kernel reads q, k and v through 4-D TMA tensor maps (d, seq, head,
+Both kernels read q, k and v through 4-D TMA tensor maps (d, seq, head,
 batch) over their own strides; :func:`tensor_map_geometry`
 (:mod:`repro_torch.kernels.tma`, shared with the decode kernel) computes
 each map's dims, byte strides, box and swizzle, and raises on what TMA
@@ -48,17 +51,17 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 launches: Dict[str, int] = {"f32": 0, "bf16": 0}
 
-#: query rows per block of the bf16 kernel
+#: query rows per block of both kernels
 BLOCK_Q = 128
-#: the bf16 entry point's code when cuTensorMapEncodeTiled is not found
+#: the entry points' code when cuTensorMapEncodeTiled is not found
 _NO_ENCODER = -999
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGS = {"f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-         "bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                  _P]}
+#: (q, k, v, o, o_strides, geo, B, H, KV, S, d, t_valid, causal, scale,
+#: stream), the same for both dtypes
+_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 
 
 def reset_launches() -> None:
@@ -74,17 +77,21 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load_libraries
     lib = load_libraries(LIBRARY)["flash_attention"]
     if not getattr(lib, "_repro_typed", False):
-        for dt, args in _ARGS.items():
+        for dt in launches:
             fn = getattr(lib, f"flash_attention_{dt}")
-            fn.argtypes = args
+            fn.argtypes = _ARGS
             fn.restype = _I
         lib._repro_typed = True
     return lib
 
 
-def block_keys(d: int) -> int:
-    """Keys per K/V tile of the bf16 kernel at head dim ``d``: 64 at d=128
-    keeps its accumulators in registers, 128 elsewhere."""
+def block_keys(dt: str, d: int) -> int:
+    """Keys per K/V tile of the ``dt`` kernel at head dim ``d``.  bf16: 64
+    at d=128 keeps its accumulators in registers, 128 elsewhere.  f32: 64,
+    and 32 at d=128, where q's hi and lo halves take 128 KB of shared
+    memory; each tile also has hi and lo copies there."""
+    if dt == "f32":
+        return 32 if d > 64 else 64
     return 64 if d > 64 else 128
 
 
@@ -149,26 +156,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dt = _DTYPES[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if dt == "f32":
-        strides = (ctypes.c_longlong * 12)(
-            *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
-        rc = _lib().flash_attention_f32(
-            *ptrs, ctypes.cast(strides, _P), B, H, k.shape[1], S,
-            k.shape[2], d, t_valid, int(causal), 1.0 / d ** 0.5, stream)
-    else:
-        geo = [x for t, rows in ((q, BLOCK_Q), (k, block_keys(d)),
-                                 (v, block_keys(d)))
-               for x in tensor_map_geometry(t, rows).flat()]
-        o_strides = (ctypes.c_longlong * 3)(*out.stride()[:3])
-        geo = (ctypes.c_longlong * len(geo))(*geo)
-        rc = _lib().flash_attention_bf16(
-            *ptrs, ctypes.cast(o_strides, _P), ctypes.cast(geo, _P), B, H,
-            k.shape[1], S, d, t_valid, int(causal), 1.0 / d ** 0.5, stream)
+    rows = block_keys(dt, d)
+    geo = [x for t, r in ((q, BLOCK_Q), (k, rows), (v, rows))
+           for x in tensor_map_geometry(t, r).flat()]
+    o_strides = (ctypes.c_longlong * 3)(*out.stride()[:3])
+    geo = (ctypes.c_longlong * len(geo))(*geo)
+    rc = getattr(_lib(), f"flash_attention_{dt}")(
+        *ptrs, ctypes.cast(o_strides, _P), ctypes.cast(geo, _P), B, H,
+        k.shape[1], S, d, t_valid, int(causal), 1.0 / d ** 0.5, stream)
     if rc == _NO_ENCODER:
-        raise RuntimeError("flash_attention_bf16: cuTensorMapEncodeTiled "
+        raise RuntimeError(f"flash_attention_{dt}: cuTensorMapEncodeTiled "
                            "not found")
     if rc < 0:
-        raise RuntimeError(f"flash_attention_bf16: cuTensorMapEncodeTiled "
+        raise RuntimeError(f"flash_attention_{dt}: cuTensorMapEncodeTiled "
                            f"refused a tensor map (CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"flash_attention_{dt} launch failed with CUDA "

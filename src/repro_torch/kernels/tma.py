@@ -1,6 +1,6 @@
 """Geometry of the 4-D TMA tensor maps through which the attention kernels
-(``csrc/flash_attention.cu`` at bf16, ``csrc/decode_attention.cu``) read
-their (B, heads, seq, d) operands.
+(``csrc/flash_attention.cu`` at f32 and bf16, ``csrc/decode_attention.cu``)
+read their (B, heads, seq, d) operands.
 
 The kernels encode the maps with ``cuTensorMapEncodeTiled``; the geometry
 is computed here, in tested Python, and raises on what TMA refuses (a base

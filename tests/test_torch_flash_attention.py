@@ -146,7 +146,7 @@ def test_cpu_tensors_launch_nothing():
 
 
 # ---------------------------------------------------------------------------
-# The bf16 kernel's arithmetic and its TMA geometry
+# The bf16 kernel's arithmetic
 # ---------------------------------------------------------------------------
 
 # chip_smoke.py's bf16 gate: |kernel - plain_f32| <= 2**-8 |plain_f32| + 1e-5
@@ -211,24 +211,170 @@ def test_bf16_p_outside_half_ulp():
     assert excess > 10 * ABS_SLACK
 
 
+# ---------------------------------------------------------------------------
+# The f32 kernel's arithmetic: split-TF32 ("3xTF32") products
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's f32 gate: |kernel - plain| <= 1e-4
+F32_GATE = 1e-4
+# (B, H, KV, S, T, d, causal, t_valid): the reference's cases, qwen2-0.5b
+# heads at a quarter of the LM path's sequence, and a d=128 case whose
+# t_valid cuts a 32-key tile
+TF32_CASES = [c + (None,) for c in SPLIT_CASES] + [
+    (1, 4, 1, 192, 320, 128, False, 250)]
+LOG2E = 1.4426950408889634
+
+
+def _tf32_rna(x):
+    """x (f32) rounded to TF32, 10 mantissa bits, to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: integer operations on the f32 bits
+    (add half of the 13 dropped bits' unit to the magnitude, clear them)."""
+    bits = np.ascontiguousarray(_np(x)).view(np.uint32)
+    out = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return torch.from_numpy(out.view(np.float32))
+
+
+def _tf32_split(x):
+    """(x_hi, x_lo) = (tf32(x), tf32(x - x_hi)), as the kernel splits."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _tf32_product(a, b, split):
+    """a @ b as the kernel's tensor cores take it: a_hi b_hi + a_hi b_lo +
+    a_lo b_hi (or one TF32 product, split off), f32 sums."""
+    if not split:
+        return _tf32_rna(a) @ _tf32_rna(b)
+    a_hi, a_lo = _tf32_split(a)
+    b_hi, b_lo = _tf32_split(b)
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+def _tf32x3_attention(q, k, v, *, causal, t_valid=None, split=True):
+    """The f32 kernel's arithmetic on f32 q, k, v, tile by tile: K / V tiles
+    of ``ops.block_keys("f32", d)`` keys (zero past T, as TMA fills them);
+    S = q . k^T as split-TF32 products; keys at kpos >= t_valid and (causal)
+    kpos > qpos masked; 1/sqrt(d) log2 e applied to the f32 scores; online
+    softmax in the log2 domain with m, l and the accumulator in f32 (exp2
+    exact where the kernel's ex2.approx is within 2 ulp); p . v as
+    split-TF32 products with keys permuted inside each 8-key group as the
+    kernel's V^T holds them (key 2t at column t, key 2t + 1 at t + 4); one
+    division by l.  ``split`` off takes one TF32 product per product."""
+    B, H, S, d = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    group = H // KV
+    t_valid = T if t_valid is None else t_valid
+    bk = ops.block_keys("f32", d)
+    pad = -T % bk
+    kf, vf = (torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+              .repeat_interleave(group, dim=1) for x in (k, v))
+    scale_log2 = np.float32(np.float32(1.0 / d ** 0.5) * np.float32(LOG2E))
+    j = np.arange(bk)
+    perm = torch.from_numpy((j & ~7) | (j & 7) >> 1 | (j & 1) << 2)
+    order = torch.argsort(perm)           # order[col] = key at that column
+    qpos = torch.arange(S)[:, None]
+    m = torch.full((B, H, S, 1), float("-inf"))
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, d))
+    for k0 in range(0, T + pad, bk):
+        kpos = k0 + torch.arange(bk)[None, :]
+        s = _tf32_product(q.float(), kf[:, :, k0:k0 + bk].transpose(2, 3),
+                          split)
+        masked = kpos >= t_valid
+        if causal:
+            masked = masked | (kpos > qpos)
+        s = s.masked_fill(masked, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        base = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.exp2(m - base)
+        # fmaf(s, scale_log2, -base): one rounding, as in f64 then f32
+        p = torch.exp2((s.double() * float(scale_log2) - base.double())
+                       .float())
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _tf32_product(
+            p[..., order], vf[:, :, k0:k0 + bk][:, :, order], split)
+        m = m_new
+    return acc / torch.where(l > 0, l, 1.0)
+
+
+def _tf32_inputs(B, H, KV, S, T, d):
+    return [torch.from_numpy(a) for a in _inputs(B, H, KV, S, T, d)]
+
+
+@pytest.mark.parametrize("B,H,KV,S,T,d,causal,t_valid", TF32_CASES)
+def test_tf32x3_matches_jax(B, H, KV, S, T, d, causal, t_valid):
+    """Split-TF32 products keep the f32 kernel within the card's f32 gate
+    (1e-4) of the JAX kernel (interpret mode) and of the plain version."""
+    q, k, v = _tf32_inputs(B, H, KV, S, T, d)
+    got = _tf32x3_attention(q, k, v, causal=causal, t_valid=t_valid)
+    want = jflash(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                  causal=causal, t_valid=t_valid, bq=min(S, 256), bk=256)
+    plain = flash_attention_ref(q, k, v, causal=causal, t_valid=t_valid)
+    err_jax = float(np.abs(got.numpy() - _np(want)).max())
+    err_plain = float((got - plain).abs().max())
+    assert err_jax <= F32_GATE, f"worst |emulation - JAX kernel| {err_jax:.3g}"
+    assert err_plain <= F32_GATE, f"worst |emulation - plain| {err_plain:.3g}"
+
+
+def test_single_tf32_outside_gate():
+    """Why operands are split: one TF32 product per product leaves the f32
+    gate (each operand rounded by up to 2**-11 relative)."""
+    B, H, KV, S, T, d, causal, t_valid = TF32_CASES[len(SPLIT_CASES) - 1]
+    q, k, v = _tf32_inputs(B, H, KV, S, T, d)
+    plain = flash_attention_ref(q, k, v, causal=causal)
+    err = float((_tf32x3_attention(q, k, v, causal=causal, split=False)
+                 - plain).abs().max())
+    assert err > 5 * F32_GATE, f"single TF32 worst |delta| {err:.3g}"
+
+
+@pytest.mark.parametrize("inputs", ["normal", "wide_exponent"])
+def test_tf32_split_exact(inputs):
+    """x_hi + x_lo is x to 2**-22 relative; both have their low 13 bits
+    zero; ties round away from zero."""
+    rng = np.random.default_rng(5)
+    if inputs == "normal":
+        x = rng.standard_normal(1 << 16).astype(np.float32)
+    else:
+        x = (rng.choice([-1.0, 1.0], 1 << 16) * (1 + rng.random(1 << 16))
+             * 2.0 ** rng.integers(-60, 61, 1 << 16)).astype(np.float32)
+    hi, lo = _tf32_split(torch.from_numpy(x))
+    for part in (hi, lo):
+        assert not (part.numpy().view(np.uint32) & 0x1FFF).any()
+    gap = np.abs(x.astype(np.float64) - hi.numpy().astype(np.float64)
+                 - lo.numpy().astype(np.float64))
+    assert (gap <= 2.0 ** -22 * np.abs(x.astype(np.float64))).all()
+    ties = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11],
+                        dtype=torch.float32)
+    np.testing.assert_array_equal(
+        _tf32_rna(ties).numpy(),
+        np.float32([1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 * 2 ** -10]))
+
+
 @pytest.mark.parametrize("layout", ["contiguous", "trunk_view"])
 @pytest.mark.parametrize("d", ops.HEAD_DIMS)
-def test_tensor_map_geometry(d, layout):
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_tensor_map_geometry(d, layout, dt):
     B, H, S = 2, 14, 300
+    es = {"bf16": 2, "f32": 4}[dt]
     if layout == "contiguous":
-        t = torch.zeros(B, H, S, d, dtype=torch.bfloat16)
-        strides = (2 * d, 2 * S * d, 2 * H * S * d)
+        t = torch.zeros(B, H, S, d, dtype=_TORCH_DT[dt])
+        strides = (es * d, es * S * d, es * H * S * d)
     else:                                   # the trunk's x.transpose(1, 2)
-        t = torch.zeros(B, S, H, d, dtype=torch.bfloat16).transpose(1, 2)
-        strides = (2 * H * d, 2 * d, 2 * S * H * d)
-    rows = ops.block_keys(d)
+        t = torch.zeros(B, S, H, d, dtype=_TORCH_DT[dt]).transpose(1, 2)
+        strides = (es * H * d, es * d, es * S * H * d)
+    rows = ops.block_keys(dt, d)
     geo = ops.tensor_map_geometry(t, rows)
     assert geo.dims == (d, S, H, B)
     assert geo.strides == strides
-    width = {8: 16, 16: 16, 32: 32, 64: 64, 128: 64}[d]   # columns per box
+    # columns per box: d padded to 16, at most 128 bytes
+    width = {8: 16, 16: 16, 32: 32, 64: 64, 128: 64}[d] if dt == "bf16" \
+        else {8: 16, 16: 16, 32: 32, 64: 32, 128: 32}[d]
     assert geo.box == (width, rows, 1, 1)
-    assert geo.swizzle == 2 * width
-    assert rows == (64 if d == 128 else 128)
+    assert geo.swizzle == es * width
+    if dt == "bf16":
+        assert rows == (64 if d == 128 else 128)
+    else:
+        assert rows == (32 if d == 128 else 64)
     assert len(geo.flat()) == 12
 
 
