@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
                 ``HMMA`` (tensor-core) instructions from ``cuobjdump -sass``
                 and whether ptxas serialised its wgmma (every bf16 and f32
                 instantiation must have some, spill nothing and not be
-                serialised); then a
+                serialised), and ``carried_a_fragments``, the wgmma whose
+                register A fragment a later instruction of their loop
+                overwrites (must be 0); then a
                 ``topk_build`` line: the same for the topk_mips kernels
                 (``score_f32``, ``score_tc<bf16>``, ``score_tc<int8>``,
                 ``select_topk``), with the warpgroup MMA count by mnemonic
@@ -47,6 +49,9 @@ Phases, each printing one JSON line:
                 timed beside it and ``scaled_dot_product_attention`` (the
                 yardstick only); the f32 rows also give ``fma_bound_ms``,
                 the bound of the same two products at the f32 FMA rate.
+                Keys past ``t_valid`` must change nothing, and a NaN in a
+                query row or in V must come out where the plain version's
+                does.
   3b. decode  — the decode-attention kernel (f32, bf16) against its plain
                 version on the card at the serve path's shape (B=4, KV=2, G=7,
                 d=64, cache 144, lengths 128 and 143), one qwen2-0.5b layer
@@ -458,6 +463,21 @@ def flash_kernel_phase(device):
         o2 = ops.flash_attention(q, k2, v2, t_valid=40)
         check(torch.equal(o1, o2), f"flash {dt}: keys past t_valid leak")
         gate("t_valid", o1, q, k, v, causal=False, t_valid=40)
+        # a NaN in a query row, or in V at key 0 (which every causal row
+        # attends), comes out where the plain version's does: the card's
+        # own NaN (all mantissa bits set), which the f32 split must keep
+        int_view, nan_bits = {"f32": (torch.int32, 0x7FFFFFFF),
+                              "bf16": (torch.int16, 0x7FFF)}[dt]
+        for where, at in (("q", (0, 1, 150, 7)), ("v", (0, 0, 0, 7))):
+            q, k, v = inputs(1, 2, 1, 200, 200, 64, dt)
+            (q if where == "q" else v).view(int_view)[at] = nan_bits
+            got = ops.flash_attention(q, k, v, causal=True)
+            nan_want = torch.isnan(
+                ref.flash_attention_ref(q, k, v, causal=True))
+            check(bool(nan_want.any())
+                  and torch.equal(torch.isnan(got), nan_want),
+                  f"flash {dt}: a NaN in {where} comes out elsewhere than "
+                  f"in the plain version")
 
         # the LM path and the d=128 row: transposed views of (B, S, H, d),
         # as the trunk passes them
@@ -1289,7 +1309,8 @@ def build_records(lib, names):
     and the count of its tensor-core instructions by mnemonic (warpgroup
     MMA: ``HGMMA``, ``IGMMA``, ...; warp MMA: ``HMMA``) in its SASS from
     ``cuobjdump -sass`` of the built library ({} per kernel when it has
-    none; None without cuobjdump)."""
+    none; None without cuobjdump), and ``carried_a_fragments`` of that SASS
+    (None without cuobjdump)."""
     import re
 
     from repro_torch.kernels import build
@@ -1321,23 +1342,72 @@ def build_records(lib, names):
     for name, rec in out.items():
         rec["wgmma_serialized"] = name in serialized
         rec["gmma"] = None if sass is None else {}
-    cur = None
+        rec["carried_a_fragments"] = None
+    cur, lines = None, {}
     for ln in (sass or "").splitlines():
         if "Function :" in ln:
             cur = out.get(label(ln))
+            if cur is not None:
+                cur_lines = lines.setdefault(label(ln), [])
         elif cur is not None:
+            cur_lines.append(ln)
             m = re.search(r"\b([A-Z]GMMA|HMMA)\b", ln)
             if m:
                 cur["gmma"][m[1]] = cur["gmma"].get(m[1], 0) + 1
+    for name, fn_lines in lines.items():
+        out[name]["carried_a_fragments"] = carried_a_fragments(fn_lines)
     return out
+
+
+def carried_a_fragments(sass_lines) -> int:
+    """The register-A wgmma (``HGMMA Rd, Ra, gdesc[...]``) of one kernel's
+    SASS whose four A registers are written later in a loop around it and
+    not earlier in that loop: each iteration after the first reads them
+    overwritten.  ptxas does not keep a loop-carried A fragment live past
+    its HGMMA (an f32 flash variant that loaded q_lo fragments once before
+    its loop read softmax values there from the second key tile on), so
+    every A fragment must be built in the iteration that reads it."""
+    import re
+    ins = []
+    for ln in sass_lines:
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m:
+            ins.append((int(m[1], 16), m[2]))
+    loops = [(int(m[1], 16), a) for a, t in ins
+             for m in [re.search(r"\bBRA (?:\S+, )?0x([0-9a-f]+)", t)]
+             if m and int(m[1], 16) < a]
+
+    def writes(t):
+        m = re.match(r"(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)\s+R(\d+)\b", t)
+        if not m or "GMMA" in m[1]:
+            return set()
+        n = 4 if ".128" in m[1] else 2 if (".64" in m[1]
+                                            or ".WIDE" in m[1]) else 1
+        return {int(m[2]) + i for i in range(n)}
+
+    found = 0
+    for a, t in ins:
+        m = re.match(r"HGMMA\S*\s+R\d+, R(\d+), gdesc", t)
+        if not m:
+            continue
+        around = [(e - s, s, e) for s, e in loops if s <= a <= e]
+        if not around:
+            continue
+        _, start, end = min(around)               # the innermost loop
+        regs = set(range(int(m[1]), int(m[1]) + 4))
+        before = any(writes(u) & regs for b, u in ins if start <= b < a)
+        after = any(writes(u) & regs for b, u in ins if a < b <= end)
+        found += after and not before
+    return found
 
 
 def flash_instantiations():
     """Each flash instantiation's ptxas registers and spill bytes, whether
-    ptxas serialised its wgmma, and the counts of ``HGMMA`` (wgmma) and
-    ``HMMA`` (mma.sync) instructions in its SASS.  Every instantiation, bf16
-    and f32, must run on tensor cores, spill nothing and keep its wgmma
-    asynchronous."""
+    ptxas serialised its wgmma, the counts of ``HGMMA`` (wgmma) and
+    ``HMMA`` (mma.sync) instructions in its SASS and its
+    ``carried_a_fragments``.  Every instantiation, bf16 and f32, must run
+    on tensor cores, spill nothing, keep its wgmma asynchronous and build
+    each register A fragment in the iteration that reads it."""
     from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
     recs = build_records("flash_attention", {
         f"flash_fwd_{dt}<{d}>": rf"flash_fwd_{dt}ILi{d}E"
@@ -1356,6 +1426,10 @@ def flash_instantiations():
             check(rec.get("hgmma") is None
                   or rec["hgmma"] + rec["hmma"] != 0,
                   f"{name} has no HGMMA or HMMA in its SASS")
+            check(not rec.get("carried_a_fragments"),
+                  f"{name}: {rec.get('carried_a_fragments')} wgmma read A "
+                  f"fragments that a later instruction of their loop "
+                  f"overwrites")
     return {"phase": "flash_build", "instantiations": recs}
 
 

@@ -56,9 +56,10 @@
 //     by ~2e-3 for |v| ~ 4, far outside the 1e-4 gate this port holds the
 //     f32 kernel to.  So each f32 operand x is split into x_hi = tf32(x)
 //     and x_lo = tf32(x - x_hi) (cvt.rna.tf32.f32: round to nearest, ties
-//     away from zero), and a . b is taken as a_hi . b_hi + a_hi . b_lo +
-//     a_lo . b_hi with f32 sums.  The dropped a_lo . b_lo and the rounding
-//     of x_lo are near 2^-22 relative, two orders under the gate.
+//     away from zero; a NaN stays a NaN), and a . b is taken as a_hi .
+//     b_hi + a_hi . b_lo + a_lo . b_hi with f32 sums.  The dropped a_lo .
+//     b_lo and the rounding of x_lo are near 2^-22 relative, two orders
+//     under the gate.
 //   * What bounds it.  Six TF32 products (three for q . k, three for
 //     p . v): at the LM path's shape 6 x 15.0 GFLOP at the 495 TFLOP/s
 //     TF32 peak, 0.182 ms, against 67 MB of inputs and output (0.020 ms).
@@ -241,6 +242,118 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ---------------------------------------------------------------------------
+// The consumers' masks, online softmax and epilogue, shared by both kernels.
+// A consumer warpgroup owns the 64 query rows from wq0; in the wgmma
+// accumulator layout thread (warp, g = lane / 4, c = lane % 4) holds rows
+// row0 = wq0 + 16 warp + g and row0 + 8, columns 8j + 2c and 8j + 2c + 1 of
+// each 8 columns j: s[4j + 2r + e] is row row0 + 8r, column 8j + c2 + e
+// (c2 = 2c).  Scores are NS = BK / 2 values a thread, the accumulator NO =
+// DP / 2.
+// ---------------------------------------------------------------------------
+
+// Keys at kpos >= t_valid, and with causal at kpos > qpos, of the tile at
+// k0 get -inf; only a tile that crosses t_valid or the diagonal is looked
+// at.
+template <int NS>
+__device__ __forceinline__ void mask_tile(float (&sc)[NS], int k0, int wq0,
+                                          int row0, int c2, int t_valid,
+                                          int causal) {
+  constexpr int BK = 2 * NS;
+  if (k0 + BK <= t_valid && !(causal && k0 + BK - 1 > wq0)) return;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = k0 + 8 * j + c2 + e;
+        if (kpos >= t_valid || (causal && kpos > row0 + 8 * r))
+          sc[4 * j + 2 * r + e] = -INFINITY;
+      }
+}
+
+// One step of the online softmax in the log2 domain: the raw scores become
+// p = 2^(s * scale_log2 - m) with m the new row max (row max and sum over
+// the quad by shuffles), and l and the accumulator are rescaled by
+// 2^(m_old - m) before p's row sums are added to l.
+template <int NS, int NO>
+__device__ __forceinline__ void softmax_step(float (&sc)[NS], float (&acc)[NO],
+                                             float (&m)[2], float (&l)[2],
+                                             float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r] = fmaxf(mx[r], fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+  float base[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    // a row with no valid key yet keeps p = 0 instead of exp(nan)
+    base[r] = m_new == -INFINITY ? 0.f : m_new;
+    corr[r] = exp2_approx(m[r] - base[r]);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * j + 2 * r + e];
+        x = exp2_approx(fmaf(x, scale_log2, -base[r]));
+        sum[r] += x;
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      acc[4 * j + 2 * r] *= corr[r];
+      acc[4 * j + 2 * r + 1] *= corr[r];
+    }
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// The epilogue: acc / l in f32, rounded once to o's type, through o's
+// strides; l is summed over the quad first, and a row with no valid key
+// (l = 0) keeps acc = 0.
+template <int D, int NO, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ o,
+                                           const Strides& so, int b, int h,
+                                           int row0, int c2, int S,
+                                           const float (&acc)[NO],
+                                           const float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float safe = lt > 0.f ? lt : 1.f;
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    T* orow = o + b * so.b + h * so.h + row * so.s;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      const int col = 8 * j + c2;
+      if (col < D)
+        store2(orow + col, acc[4 * j + 2 * r] / safe,
+               acc[4 * j + 2 * r + 1] / safe);
+    }
+  }
+}
+
 // wgmma wrappers, one per accumulator shape: FN(d, a, b[, scale_d]) with
 // d (64 x N) f32 accumulators in registers, TYPE the k step and operand
 // types, TAIL the immediates (scale-a, scale-b and, for 16-bit operands,
@@ -372,9 +485,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // consumers: warpgroup cw owns query rows wq0 .. wq0 + 63; in the wgmma
-  // accumulator layout thread (warp, g = lane / 4, c = lane % 4) holds rows
-  // row0 and row0 + 8, columns 8j + 2c and 8j + 2c + 1 of each 8 columns j
+  // consumers: warpgroup cw owns query rows wq0 .. wq0 + 63 (the layout of
+  // their accumulators is set out above mask_tile)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
   const int cw = wg - 1;
   const int t = threadIdx.x - 128 * wg;
@@ -420,57 +532,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     reg_fence(sc);
     mbar_arrive(k_empty(s));
 
-    // masks, only where the tile crosses t_valid or the diagonal
-    if (k0 + BK > t_valid || (causal && k0 + BK - 1 > wq0)) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int kpos = k0 + 8 * j + c2 + e;
-            if (kpos >= t_valid || (causal && kpos > row0 + 8 * r))
-              sc[4 * j + 2 * r + e] = -INFINITY;
-          }
-    }
-
-    // online softmax in the log2 domain: p = 2^(s * scale_log2 - m)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        mx[r] = fmaxf(mx[r], fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
-    float base[2], corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
-      // a row with no valid key yet keeps p = 0 instead of exp(nan)
-      base[r] = m_new == -INFINITY ? 0.f : m_new;
-      corr[r] = exp2_approx(m[r] - base[r]);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = sc[4 * j + 2 * r + e];
-          x = exp2_approx(fmaf(x, scale_log2, -base[r]));
-          sum[r] += x;
-        }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        acc[4 * j + 2 * r] *= corr[r];
-        acc[4 * j + 2 * r + 1] *= corr[r];
-      }
+    mask_tile(sc, k0, wq0, row0, c2, t_valid, causal);
+    softmax_step(sc, acc, m, l, scale_log2);
 
     // p = p_hi + p_lo as bf16 A fragments: for keys 16ks .. 16ks + 15 the
     // fragment is (row g, keys c2..), (row g + 8, c2..), (g, 8 + c2..),
@@ -508,24 +571,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(v_empty(s));
   }
 
-  // epilogue: acc / l in f32, rounded once, through o's strides
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lt = l[r];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const float safe = lt > 0.f ? lt : 1.f;
-    const int row = row0 + 8 * r;
-    if (row >= S) continue;
-    __nv_bfloat16* orow = o + b * so.b + h * so.h + row * so.s;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + c2;
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
-            acc[4 * j + 2 * r] / safe, acc[4 * j + 2 * r + 1] / safe);
-    }
-  }
+  store_rows<D>(o, so, b, h, row0, c2, S, acc, l);
 }
 
 // ---------------------------------------------------------------------------
@@ -564,14 +610,14 @@ __device__ __forceinline__ uint32_t swz(uint32_t o) {
 }
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero, as an f32 with its low 13 bits zero: half a unit of the 13 dropped
-// bits is added to the magnitude, then they are cleared.  This is the
-// rounding of cvt.rna.tf32.f32, bit for bit on every input that is not a
-// NaN (a NaN stays a NaN or becomes an infinity, and the output is NaN
-// either way), in two integer instructions where cvt.rna compiles to a
-// longer sequence.
+// zero, as an f32 with its low 13 bits zero; a NaN stays a NaN.  (Adding
+// half a unit to the bits and clearing the low 13 is the same rounding on
+// every other input, and faster, but its carry turns NaNs into zeros or
+// infinities, and guarding it costs more than cvt.rna: see PERF.md.)
 __device__ __forceinline__ float tf32_rna(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
 }
 
 __device__ __forceinline__ float4 lds128(uint32_t a) {
@@ -793,9 +839,8 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // consumers: warpgroup cw owns query rows wq0 .. wq0 + 63; in the wgmma
-  // accumulator layout thread (warp, g = lane / 4, c = lane % 4) holds rows
-  // row0 and row0 + 8, columns 8j + 2c and 8j + 2c + 1 of each 8 columns j
+  // consumers: warpgroup cw owns query rows wq0 .. wq0 + 63 (the layout of
+  // their accumulators is set out above mask_tile)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 224;");
   const int cw = wg - 1;
   const int t = threadIdx.x - 128 * wg;
@@ -822,7 +867,8 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < DP / 8; ++ks) {
-      const uint32_t qo = ks * 8 / CB * BQ * SW + cw * 64 * SW + ks * 8 % CB * 4;
+      const uint32_t qo =
+          ks * 8 / CB * BQ * SW + cw * 64 * SW + ks * 8 % CB * 4;
       const uint32_t ko = ks * 8 / CB * BK * SW + ks * 8 % CB * 4;
       const uint64_t qh = smem_desc(sQ + qo, 16, 8 * SW, G::LAYOUT);
       const uint64_t ql = smem_desc(sQl + qo, 16, 8 * SW, G::LAYOUT);
@@ -837,61 +883,15 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tq,
     reg_fence(sc);
     mbar_arrive(ks_empty(s));
 
-    // masks, only where the tile crosses t_valid or the diagonal
-    if (k0 + BK > t_valid || (causal && k0 + BK - 1 > wq0)) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int kpos = k0 + 8 * j + c2 + e;
-            if (kpos >= t_valid || (causal && kpos > row0 + 8 * r))
-              sc[4 * j + 2 * r + e] = -INFINITY;
-          }
-    }
-
-    // online softmax in the log2 domain: p = 2^(s * scale_log2 - m)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        mx[r] = fmaxf(mx[r], fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
-    float base[2], corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
-      // a row with no valid key yet keeps p = 0 instead of exp(nan)
-      base[r] = m_new == -INFINITY ? 0.f : m_new;
-      corr[r] = exp2_approx(m[r] - base[r]);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = sc[4 * j + 2 * r + e];
-          x = exp2_approx(fmaf(x, scale_log2, -base[r]));
-          sum[r] += x;
-        }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        acc[4 * j + 2 * r] *= corr[r];
-        acc[4 * j + 2 * r + 1] *= corr[r];
-      }
+    mask_tile(sc, k0, wq0, row0, c2, t_valid, causal);
+    softmax_step(sc, acc, m, l, scale_log2);
 
     // p = p_hi + p_lo as TF32 A fragments of keys 8j .. 8j + 7: (row g,
     // column c), (g + 8, c), (g, c + 4), (g + 8, c + 4) for c = lane % 4,
-    // where column c holds key 2c and column c + 4 key 2c + 1 (V^T's order)
+    // where column c holds key 2c and column c + 4 key 2c + 1 (V^T's order).
+    // A fragments are built in the iteration that reads them: ptxas does
+    // not keep one live across the loop (q_lo fragments loaded once before
+    // it were overwritten by the softmax; chip_smoke.py checks the SASS).
     uint32_t hi[BK / 8][4], lo[BK / 8][4];
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -935,24 +935,7 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(vs_empty(s));
   }
 
-  // epilogue: acc / l in f32, through o's strides
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lt = l[r];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const float safe = lt > 0.f ? lt : 1.f;
-    const int row = row0 + 8 * r;
-    if (row >= S) continue;
-    float* orow = o + b * so.b + h * so.h + row * so.s;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + c2;
-      if (col < D)
-        *reinterpret_cast<float2*>(orow + col) = make_float2(
-            acc[4 * j + 2 * r] / safe, acc[4 * j + 2 * r + 1] / safe);
-    }
-  }
+  store_rows<D>(o, so, b, h, row0, c2, S, acc, l);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

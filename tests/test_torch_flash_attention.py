@@ -10,6 +10,9 @@ when it pads d to 128), 3e-4 for the property.  The kernel itself is held
 against the plain version on the card by ``chip_smoke.py``.
 """
 
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -227,11 +230,16 @@ LOG2E = 1.4426950408889634
 
 def _tf32_rna(x):
     """x (f32) rounded to TF32, 10 mantissa bits, to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32``: integer operations on the f32 bits
-    (add half of the 13 dropped bits' unit to the magnitude, clear them)."""
-    bits = np.ascontiguousarray(_np(x)).view(np.uint32)
-    out = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
-    return torch.from_numpy(out.view(np.float32))
+    from zero, as the kernel's ``cvt.rna.tf32.f32`` rounds: integer
+    operations on the f32 bits (add half of the 13 dropped bits' unit to
+    the magnitude, clear them).  A NaN stays a NaN, as cvt.rna keeps it
+    (its payload is not modelled): the addition's carry would turn it into
+    a zero or an infinity, so it is made quiet instead."""
+    x = np.ascontiguousarray(_np(x))
+    bits = x.view(np.uint32)
+    out = np.where(np.isnan(x), bits | np.uint32(0x400000),
+                   bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return torch.from_numpy(out.astype(np.uint32).view(np.float32))
 
 
 def _tf32_split(x):
@@ -327,6 +335,28 @@ def test_single_tf32_outside_gate():
     assert err > 5 * F32_GATE, f"single TF32 worst |delta| {err:.3g}"
 
 
+# the card's own NaN (all mantissa bits set), as the f32 bits of q or v
+CARD_NAN = 0x7FFFFFFF
+
+
+@pytest.mark.parametrize("where", ["q", "v"])
+def test_tf32x3_propagates_nan(where):
+    """A NaN in a query row or in V at key 0 (which every causal row
+    attends) comes out where the plain version's does, and nowhere else:
+    the split must not turn it into a finite number."""
+    q, k, v = _tf32_inputs(1, 2, 1, 48, 48, 16)
+    if where == "q":
+        q.view(torch.int32)[0, 1, 5, 3] = CARD_NAN
+    else:
+        v.view(torch.int32)[0, 0, 0, 7] = CARD_NAN
+    got = _tf32x3_attention(q, k, v, causal=True)
+    plain = flash_attention_ref(q, k, v, causal=True)
+    assert torch.isnan(plain).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    fin = ~torch.isnan(plain)
+    assert float((got[fin] - plain[fin]).abs().max()) <= F32_GATE
+
+
 @pytest.mark.parametrize("inputs", ["normal", "wide_exponent"])
 def test_tf32_split_exact(inputs):
     """x_hi + x_lo is x to 2**-22 relative; both have their low 13 bits
@@ -348,6 +378,13 @@ def test_tf32_split_exact(inputs):
     np.testing.assert_array_equal(
         _tf32_rna(ties).numpy(),
         np.float32([1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 * 2 ** -10]))
+    # NaNs stay NaNs: 0x7fffffff is the card's own NaN, where adding half
+    # a unit carries into the sign; 0x7f800001 has only low bits set
+    nans = np.uint32([0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, 0xFFFFF000,
+                      0x7F800001]).view(np.float32)
+    for part in _tf32_split(torch.from_numpy(nans)):
+        assert np.isnan(part.numpy()).all(), part.numpy().view(np.uint32)
+        assert not (part.numpy().view(np.uint32) & 0x1FFF).any()
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "trunk_view"])
@@ -389,3 +426,33 @@ def test_tensor_map_geometry_raises_on_stride():
     t = torch.zeros(1, 2, 8, 12, dtype=torch.bfloat16)[..., :8]  # 24 bytes
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
         ops.tensor_map_geometry(t, ops.BLOCK_Q)
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("built_in_loop", [False, True])
+def test_carried_a_fragments(built_in_loop):
+    """chip_smoke.py's SASS check: a register A fragment loaded once before
+    a loop, read by an HGMMA in it and overwritten later in the loop (ptxas
+    reuses its registers) is counted; one built in the loop is not."""
+    loads = ["LDS R40, [R2+0x8000]", "LDS R41, [R3+0x8000]",
+             "LDS.64 R42, [R4+0x8000]"]
+    loop = ["WARPGROUP.ARRIVE",
+            "HGMMA.64x64x8.F32.TF32 R0, R40, gdesc[UR16], R0, gsb0",
+            "WARPGROUP.DEPBAR.LE gsb0, 0x0", "MUFU.EX2 R41, R9",
+            "FADD R8, R8, R41", "@!P0 BRA 0x{start:x}", "EXIT"]
+    pre = ["S2R R2, SR_TID.X"] + ([] if built_in_loop else loads)
+    start = 0x10 * len(pre)               # the loop's first instruction
+    body = pre + (loads if built_in_loop else []) + [
+        t.format(start=start) for t in loop]
+    sass = [f"        /*{0x10 * i:04x}*/   {t} ;   /* 0x0 */"
+            for i, t in enumerate(body)]
+    assert _chip_smoke().carried_a_fragments(sass) == (
+        0 if built_in_loop else 1)
+
