@@ -40,7 +40,12 @@ Phases, each printing one JSON line:
                 calls); ``device_ms`` is the two kernels' device time per
                 call from a ``torch.profiler`` window over 20 calls (the
                 union of their intervals), ``device_ms_by_kernel`` each
-                kernel's own.
+                kernel's own.  Then the materialized engine's call, one
+                ``topk_mips`` over a whole corpus (Q=256, N=65536, D=768,
+                k=100) at each dtype (``"shape": "whole_corpus"``): one
+                launch per window of ``ops._windows``, held and timed as
+                above, with ``wrapper_ms`` for the wrapper as the engine
+                calls it.
   3. flash    — the flash-attention kernel (f32, bf16) at the LM path's shape
                 (B=4, H=14, KV=2, S=T=2048, d=64, causal, on the trunk's
                 strided views) and the qwen2-72b head geometry (B=1, H=64,
@@ -75,6 +80,24 @@ Phases, each printing one JSON line:
                 one ledger row per step with the reference's keys, one kernel
                 launch per corpus chunk and checkpoint, and equal f32 metrics
                 between the two impls.
+  5b. subset  — the paper's subset and rerank path on the main phase's data:
+                (a) the port's lexical baseline run (top 100, 30% of query
+                tokens dropped) as a TREC run and ``repro_torch.core.
+                splitter`` at depth 100 (every gold passage kept);
+                (b) ``--engine materialized --impl cuda`` against streaming
+                at f32, bf16 and int8, both encoding 1024 rows a batch: one
+                topk_mips launch per window per checkpoint, at most 1% of the
+                (step, query) top-k lists and no metric by more than 1e-4
+                apart, the ledger ``timings`` of both; (c) ``--mode rerank``
+                over the baseline's top 100 on streaming and on materialized
+                at ``--rerank_block`` 16 and 256 (identical runs; streaming
+                vs materialized held as in b); (d) ``--mode average_rank``
+                (``qrel_pool``): ``AverageRank`` finite, the reference's keys;
+                (e) ``--token_backing mmap`` at bf16: metrics equal to the
+                memory-backed run, and a second run reuses the cache without
+                touching a file; (f) ``fidelity_report`` of the subset
+                ledger against the full-corpus ledger (MRR@10) over the two
+                checkpoints and a third.
   6. lm       — full-width qwen2-0.5b (24 layers, random weights from a seed;
                 ``--trace`` also traces one f32 and one bf16 forward):
                 (a) ``lm_loss`` and ``forward`` on 4 x 2048 tokens with
@@ -98,9 +121,10 @@ Phases, each printing one JSON line:
                 layers, batch 16, a 32768-token cache.
 
 Kernel launches are counted only while a path runs (the main path for
-topk_mips, the LM phase's ``lm_loss`` for flash attention, its
-``serve_batch`` calls for decode attention: the three timed bf16 calls and
-the f32 one), with every count set to 0 just before it.  Then a
+topk_mips, the subset phase's materialized runs for its whole-corpus rows,
+the LM phase's ``lm_loss`` for flash attention, its ``serve_batch`` calls
+for decode attention: the three timed bf16 calls and the f32 one), with
+every count set to 0 just before it.  Then a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero before that line.  It
@@ -131,6 +155,8 @@ PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12,
               # TF32 on the tensor cores: the f32 flash kernel's products
               "tf32": 495e12}
 ELEM_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
+# the kernel phase's whole-corpus topk_mips call (the materialized engine's)
+WHOLE_CORPUS = {"Q": 256, "N": 65536, "D": 768, "k": 100}
 REPLACES = {"f32": "src/repro/kernels/topk_mips/kernel.py:135",
             "bf16": "src/repro/kernels/topk_mips/kernel.py:135",
             "int8": "src/repro/kernels/topk_mips/kernel.py:176"}
@@ -343,9 +369,66 @@ def kernel_phase(device):
                 emit(row)
                 if k == 100 and n_valid == N:
                     rows[dt] = row
+    whole = whole_corpus_rows(device, rand)
     emit({"phase": "kernels", "ok": True,
           "checked_launches": dict(ops.launches),
           "seconds": time.perf_counter() - t_phase})
+    return rows, whole
+
+
+def whole_corpus_rows(device, rand):
+    """The materialized engine's call: one ``topk_mips`` over a whole
+    corpus (Q=256, N=65536, D=768, k=100), which the wrapper cuts into
+    windows folded through a carry.  Held against the plain version; ``ms``
+    and ``device_ms`` time the windows' launches on the kernel's inputs
+    (cast or quantized once, as the other rows), ``wrapper_ms`` the wrapper
+    as the engine calls it (bf16: a bf16-resident corpus; int8: f32 inputs
+    quantized in the call)."""
+    from repro_torch.kernels.topk_mips import ops, ref
+    Q, N, D, k = WHOLE_CORPUS["Q"], WHOLE_CORPUS["N"], WHOLE_CORPUS["D"], \
+        WHOLE_CORPUS["k"]
+    lib = ops._lib(device)
+    windows = len(ops._windows(N, k, 0, lib.cols, lib.max_cand))
+    rows = {}
+    q, c = rand(Q, D), rand(N, D)
+    for dt in ("f32", "bf16", "int8"):
+        resident = c.to(torch.bfloat16) if dt == "bf16" else c
+        qk, ck, qs, cs = plain_inputs(dt, q, c)
+        ops.reset_launches()
+        got = ops.topk_mips(q, resident, k=k, score_dtype=dt)
+        torch.cuda.synchronize()
+        launches = ops.launches[dt]
+        check(launches == windows, f"whole-corpus {dt}: {launches} launches, "
+              f"{windows} windows")
+        err = compare(dt, got, ref.topk_mips_ref(q, c, k=k, score_dtype=dt))
+
+        def kernel():
+            return ops._topk_cuda(dt, qk, ck, qs, cs, k_target=k, n_valid=N)
+
+        compare(dt, kernel(), got, exact_ties=True)
+        ms = cuda_time_ms(kernel)
+        dev_ms, by_kernel = device_ms(f"topk_whole_{dt}", kernel,
+                                      TOPK_KERNELS)
+        wrapper_ms = cuda_time_ms(
+            lambda: ops.topk_mips(q, resident, k=k, score_dtype=dt))
+        plain_ms = cuda_time_ms(
+            lambda: ref.topk_mips_ref(q, c, k=k, score_dtype=dt), iters=5)
+        library_ms = cuda_time_ms(
+            lambda: library_call(dt, qk, ck, qs, cs, k))
+        nbytes = (Q + N) * D * ELEM_BYTES[dt] + 2 * Q * k * 4
+        if dt == "int8":
+            nbytes += (Q + N) * 4
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = 2 * Q * N * D / PEAK_OPS_S[dt] * 1e3
+        row = {"phase": "kernels", "shape": "whole_corpus", "variant": dt,
+               "Q": Q, "N": N, "D": D, "k": k, "windows": windows,
+               "launches_per_call": launches, "max_abs_err": err, "ms": ms,
+               "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
+               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        emit(row)
+        rows[dt] = row
     return rows
 
 
@@ -781,7 +864,258 @@ def main_phase(device):
             check(abs(v - b["metrics"][name]) <= 1e-6,
                   f"step {a['step']} {name}: cuda {v} vs torch "
                   f"{b['metrics'][name]}")
-    return measured
+    return measured, ds, results
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the paper's subset and rerank path on the main phase's data
+# ---------------------------------------------------------------------------
+
+# gates of the subset phase: materialized against streaming (and rerank
+# across engines) on the card: at most this share of (step, query) top-k
+# lists may differ, and no metric by more than this
+LIST_SHARE, METRIC_TOL = 0.01, 1e-4
+SUBSET_DEPTH = 100
+FIDELITY_STEP = 3000
+
+
+class CliRunner:
+    """Runs ``repro_torch.core.cli.main`` over the main phase's files with
+    ``--write_run``, launch counts set to 0 just before and read just after
+    each run; returns its ledger rows and runs."""
+
+    def __init__(self, work, steps):
+        self.work = work
+        self.steps = list(steps)
+
+    def __call__(self, tag, extra, *, candidate_dir=None, ckpts=None,
+                 steps=None):
+        from repro_torch.core import cli
+        from repro_torch.core.metrics import read_trec_run
+        out = os.path.join(self.work, f"subset_{tag}")
+        steps = self.steps if steps is None else steps
+        reset_all_launches()
+        t0 = time.perf_counter()
+        rc = cli.main([
+            "--query_file", os.path.join(self.work, "q.jsonl"),
+            "--candidate_dir", candidate_dir
+            or os.path.join(self.work, "corpus"),
+            "--ckpts_dir", ckpts or os.path.join(self.work, "ckpts"),
+            "--qrel_file", os.path.join(self.work, "qrels.txt"),
+            "--q_max_len", "32", "--p_max_len", "128",
+            "--metrics", "MRR@10", "Recall@100", "--write_run",
+            "--output_dir", out] + extra)
+        seconds = time.perf_counter() - t0
+        counts = {k: n for k, n in all_launches().items() if n}
+        check(rc == 0, f"{tag}: cli returned {rc} (validation errors)")
+        with open(os.path.join(out, "asyncval_ledger.jsonl")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        check([r["step"] for r in rows] == steps,
+              f"{tag}: ledger steps {[r['step'] for r in rows]}")
+        for r in rows:
+            check(set(r) == LEDGER_KEYS, f"{tag}: ledger keys {sorted(r)}")
+            check(all(math.isfinite(v) for v in r["metrics"].values()),
+                  f"{tag}: metrics {r['metrics']}")
+        runs = {step: read_trec_run(os.path.join(
+            out, f"asyncval_step{step}.trec")) for step in steps}
+        return {"tag": tag, "rows": rows, "runs": runs, "counts": counts,
+                "seconds": seconds, "out": out}
+
+
+def held(a, b, name):
+    """Engine ``b`` against engine ``a`` on the card: the (step, query)
+    top-k lists that differ and the largest metric difference, gated."""
+    differ = total = 0
+    for step, run in a["runs"].items():
+        other = b["runs"][step]
+        check(set(run) == set(other), f"{name}: query sets differ")
+        for qid, ranked in run.items():
+            total += 1
+            differ += [d for d, _ in ranked] != [d for d, _ in other[qid]]
+    diff = max((abs(v - rb["metrics"][m]) for ra, rb in zip(a["rows"],
+                                                             b["rows"])
+                for m, v in ra["metrics"].items()), default=0.0)
+    check(differ <= LIST_SHARE * total, f"{name}: {differ} of {total} top-k "
+          f"lists differ (at most {LIST_SHARE:.0%})")
+    check(diff <= METRIC_TOL, f"{name}: metrics differ by {diff:.3g}")
+    return {"lists_differ": differ, "lists": total, "max_metric_diff": diff}
+
+
+def subset_phase(device, ds, main_results):
+    """(a) lexical baseline run + splitter at depth 100, (b) materialized vs
+    streaming at f32 / bf16 / int8, (c) rerank on both engines and two
+    ``--rerank_block`` values, (d) average_rank, (e) an mmap token store
+    and its reuse, (f) fidelity of the subset ledger against the
+    full-corpus ledger.  Returns the materialized runs' topk_mips launches
+    per dtype."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.core import fidelity, splitter
+    from repro_torch.core.metrics import write_trec_run
+    from repro_torch.data import corpus as corpus_lib
+    from repro_torch.kernels.topk_mips import ops
+    from repro_torch.models import transformer as tfm
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    t_phase = time.perf_counter()
+    steps = [r["step"] for r in main_results[("cuda", "f32")]]
+    n_docs, chunk = len(ds.corpus), 1024
+    n_chunks = -(-n_docs // chunk)
+    run_cli = CliRunner(work, steps)
+
+    # (a) the lexical baseline run and the splitter
+    t0 = time.perf_counter()
+    base = corpus_lib.lexical_baseline_run(ds, k=SUBSET_DEPTH, drop_frac=0.3)
+    run_path = os.path.join(work, "lexical.trec")
+    write_trec_run(run_path, {q: [d for d, _ in v] for q, v in base.items()},
+                   {q: [s for _, s in v] for q, v in base.items()},
+                   tag="lexical")
+    t_base = time.perf_counter() - t0
+    sub_dir = os.path.join(work, "subset")
+    t0 = time.perf_counter()
+    check(splitter.main(["--candidate_dir", os.path.join(work, "corpus"),
+                         "--run_file", run_path,
+                         "--qrel_file", os.path.join(work, "qrels.txt"),
+                         "--output_dir", sub_dir,
+                         "--depth", str(SUBSET_DEPTH)]) == 0,
+          "splitter failed")
+    t_split = time.perf_counter() - t0
+    kept = corpus_lib.read_jsonl(os.path.join(
+        sub_dir, f"subset_top{SUBSET_DEPTH}.jsonl"))
+    golds = {d for q in ds.qrels.values() for d in q}
+    check(golds <= set(kept), f"the subset lost {len(golds - set(kept))} "
+          "gold passages")
+    emit({"phase": "subset", "part": "a", "passages": n_docs,
+          "depth": SUBSET_DEPTH, "subset": len(kept), "golds": len(golds),
+          "baseline_s": t_base, "splitter_s": t_split})
+
+    # (b) materialized against streaming, both encoding 1024 rows a batch
+    lib = ops._lib(device)
+    windows = len(ops._windows(n_docs, 100, 0, lib.cols, lib.max_cand))
+    same = ["--impl", "cuda", "--batch_size", str(chunk), "--chunk_size",
+            str(chunk)]
+    mat_launches = {}
+    for dt in ("f32", "bf16", "int8"):
+        key = f"topk_mips_{dt}"
+        st = run_cli(f"stream_{dt}", same + ["--score_dtype", dt])
+        check(st["counts"] == {key: n_chunks * len(steps)},
+              f"streaming {dt}: launches {st['counts']}")
+        mat = run_cli(f"mat_{dt}", same + ["--score_dtype", dt,
+                                           "--engine", "materialized"])
+        check(mat["counts"] == {key: windows * len(steps)},
+              f"materialized {dt}: launches {mat['counts']}, expected "
+              f"{windows} window(s) x {len(steps)} checkpoints")
+        check(all(r["engine"] == "materialized" for r in mat["rows"]),
+              f"materialized {dt}: engine {mat['rows'][0]['engine']}")
+        mat_launches[dt] = mat["counts"].get(key, 0)
+        emit({"phase": "subset", "part": "b", "score_dtype": dt,
+              **held(st, mat, f"materialized {dt}"),
+              "launches": {"streaming": st["counts"],
+                           "materialized": mat["counts"]},
+              "windows_per_call": windows,
+              "timings": {"streaming": {r["step"]: r["timings"]
+                                        for r in st["rows"]},
+                          "materialized": {r["step"]: r["timings"]
+                                           for r in mat["rows"]}},
+              "seconds": {"streaming": st["seconds"],
+                          "materialized": mat["seconds"]}})
+
+    # (c) rerank over the baseline's per-query top 100
+    rerank = same + ["--mode", "rerank", "--sampler", "rerank_topk",
+                     "--depth", str(SUBSET_DEPTH), "--run_file", run_path]
+    st = run_cli("rerank_stream", rerank)
+    blocks = {b: run_cli(f"rerank_mat_b{b}", rerank + [
+        "--engine", "materialized", "--rerank_block", str(b)])
+        for b in (16, 256)}
+    for r in (st, *blocks.values()):
+        check(not r["counts"], f"{r['tag']}: kernel launches {r['counts']}")
+    check(blocks[16]["runs"] == blocks[256]["runs"],
+          "rerank runs differ between --rerank_block 16 and 256")
+    emit({"phase": "subset", "part": "c", "mode": "rerank",
+          **held(st, blocks[16], "rerank streaming vs materialized"),
+          "blocks_identical": True, "subset_size": st["rows"][0]
+          ["subset_size"],
+          "timings": {"streaming": {r["step"]: r["timings"]
+                                    for r in st["rows"]},
+                      **{f"materialized_b{b}": {r["step"]: r["timings"]
+                                                for r in v["rows"]}
+                         for b, v in blocks.items()}}})
+
+    # (d) average rank over the DPR pool
+    avg = run_cli("average_rank", same + [
+        "--mode", "average_rank", "--sampler", "qrel_pool", "--depth", "30",
+        "--run_file", run_path])
+    for r in avg["rows"]:
+        check(set(r["metrics"]) == {"MRR@10", "Recall@100", "AverageRank"},
+              f"average_rank: metrics {sorted(r['metrics'])}")
+    emit({"phase": "subset", "part": "d", "mode": "average_rank",
+          "metrics": {r["step"]: r["metrics"] for r in avg["rows"]},
+          "subset_size": avg["rows"][0]["subset_size"],
+          "launches": avg["counts"]})
+
+    # (e) an mmap token store, built once, then reused untouched
+    mm = os.path.join(work, "token_cache")
+    main_args = ["--impl", "cuda", "--score_dtype", "bf16", "--batch_size",
+                 "256", "--chunk_size", str(chunk), "--token_backing",
+                 "mmap", "--mmap_dir", mm]
+    first = run_cli("mmap_1", main_args)
+    cache = os.path.join(mm, "corpus_tokens")
+
+    def stats():
+        return {n: (os.stat(os.path.join(cache, n)).st_mtime_ns,
+                    os.path.getsize(os.path.join(cache, n)))
+                for n in sorted(os.listdir(cache))}
+
+    before = stats()
+    with open(os.path.join(cache, "store_meta.json"), "rb") as f:
+        meta = f.read()
+    second = run_cli("mmap_2", main_args)
+    with open(os.path.join(cache, "store_meta.json"), "rb") as f:
+        check(f.read() == meta, "mmap: store_meta.json changed")
+    check(stats() == before, "mmap: the second run rewrote the cache")
+    memory = main_results[("cuda", "bf16")]
+    for r in (first, second):
+        check(r["counts"] == {"topk_mips_bf16": n_chunks * len(steps)},
+              f"{r['tag']}: launches {r['counts']}")
+        check([x["metrics"] for x in r["rows"]]
+              == [x["metrics"] for x in memory],
+              f"{r['tag']}: metrics differ from the memory-backed run")
+    emit({"phase": "subset", "part": "e", "backing": "mmap",
+          "files": before, "metrics_equal_memory": True, "reused": True,
+          "seconds": {"build_run": first["seconds"],
+                      "reuse_run": second["seconds"]},
+          "timings": {"build_run": {r["step"]: r["timings"]
+                                    for r in first["rows"]},
+                      "reuse_run": {r["step"]: r["timings"]
+                                    for r in second["rows"]}}})
+
+    # (f) fidelity: the splitter's subset against the full corpus, MRR@10
+    # over the main phase's checkpoints and one more
+    ckpts3 = os.path.join(work, "ckpts_fidelity")
+    os.makedirs(ckpts3, exist_ok=True)
+    for step in steps:
+        name = os.path.basename(ckpt._step_dir(ckpts3, step))
+        os.symlink(os.path.join(work, "ckpts", name),
+                   os.path.join(ckpts3, name))
+    ckpt.save(ckpts3, FIDELITY_STEP,
+              {"params": tfm.init_numpy(dr_bert_base.full_config(),
+                                        len(steps) + 1)})
+    fsteps = steps + [FIDELITY_STEP]
+    fid = ["--impl", "cuda", "--batch_size", "256", "--chunk_size",
+           str(chunk)]
+    full = run_cli("fidelity_full", fid, ckpts=ckpts3, steps=fsteps)
+    sub = run_cli("fidelity_subset", fid, ckpts=ckpts3, steps=fsteps,
+                  candidate_dir=sub_dir)
+    ref = [r["metrics"]["MRR@10"] for r in full["rows"]]
+    est = [r["metrics"]["MRR@10"] for r in sub["rows"]]
+    report = fidelity.fidelity_report(ref, est)
+    check(all(math.isfinite(v) for v in report.values()),
+          f"fidelity: {report}")
+    emit({"phase": "subset", "part": "f", "metric": "MRR@10",
+          "steps": fsteps, "full": ref, "subset": est,
+          "subset_size": sub["rows"][0]["subset_size"], "report": report})
+    emit({"phase": "subset", "ok": True,
+          "seconds": time.perf_counter() - t_phase})
+    return mat_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1492,8 +1826,9 @@ def kernel_row(name, source, replaces, launches, row):
            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-    if "device_ms" in row:
-        out["device_ms"] = row["device_ms"]
+    for key in ("device_ms", "windows", "wrapper_ms"):
+        if key in row:
+            out[key] = row[key]
     return out
 
 
@@ -1511,16 +1846,18 @@ def main(argv=None) -> int:
     emit(flash_instantiations())
     emit(topk_instantiations())
     emit(decode_instantiations())
-    rows = kernel_phase(device)
+    rows, whole_rows = kernel_phase(device)
     flash_rows = flash_kernel_phase(device)
     decode_rows = decode_kernel_phase(device)
     # launches come only from the paths' runs; without them, none
     launches = {dt: None for dt in rows}
+    whole_launches = {dt: None for dt in whole_rows}
     flash_launches = {dt: None for dt in flash_rows}
     decode_launches = {dt: None for dt in decode_rows}
     if "--kernels-only" not in argv:
         encoder_phase(device)
-        launches = main_phase(device)
+        launches, ds, main_results = main_phase(device)
+        whole_launches = subset_phase(device, ds, main_results)
         if "--trace" in argv:
             trace_phase()
         lm_launches = lm_phase(device, trace="--trace" in argv)
@@ -1530,6 +1867,9 @@ def main(argv=None) -> int:
     emit({"kernels": [
         kernel_row(f"topk_mips_{dt}", SOURCE, REPLACES[dt], launches[dt],
                    row) for dt, row in rows.items()] + [
+        kernel_row(f"topk_mips_{dt}_whole_corpus", SOURCE, REPLACES[dt],
+                   whole_launches[dt], row)
+        for dt, row in whole_rows.items()] + [
         kernel_row(f"flash_attention_{dt}", FLASH_SOURCE, FLASH_REPLACES,
                    flash_launches[dt], row)
         for dt, row in flash_rows.items()] + [

@@ -10,10 +10,13 @@ writes it:
 
 Leaves are stored in JAX's ``tree_flatten`` order, which for nested dicts is
 the order of the sorted keys at every level.  The manifest's ``treedef`` is
-a JAX protobuf, which this package does not read: :func:`restore` rebuilds
-the tree from a *template* — a nested dict with the same keys as the saved
-tree, whose leaves are the expected shapes (a tuple) or ``None`` — and
-checks every leaf's shape and dtype against the manifest.
+the hex of ``jax.tree_util`` ``serialize_using_proto()``;
+:func:`treedef_keypaths` decodes it in pure Python (dict, list, tuple and
+None nodes) into each leaf's key path.  :func:`restore` takes a *template*
+— a nested dict whose leaves are the expected shapes (a tuple) or ``None``
+— and restores that subtree by key path out of whatever larger tree was
+saved (a trainer's ``{"params", "opt_state"}``, say), checking every
+leaf's shape and dtype against the manifest.
 
 bf16 leaves come back from ``np.load`` as 2-byte void records (the JAX
 package writes them through ``ml_dtypes``).  They are viewed as ``uint16``
@@ -29,7 +32,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,6 +63,140 @@ def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
                                else str(key)))
         return out
     return [(prefix, tree)]
+
+
+# ---------------------------------------------------------------------------
+# The reference manifest's treedef: jax.tree_util's PyTreeDefProto
+# ---------------------------------------------------------------------------
+
+#: PyTreeDefProto node kinds the decoder reads (jaxlib's pytree.proto)
+_LEAF, _LIST, _NONE, _TUPLE, _DICT = 1, 2, 3, 4, 5
+_KIND_NAMES = {_LEAF: "leaf", _LIST: "list", _NONE: "None", _TUPLE: "tuple",
+               _DICT: "dict"}
+
+KeyPath = Tuple[Union[str, int], ...]
+
+
+def _varint(buf: bytes, pos: int) -> Tuple[int, int]:
+    value = shift = 0
+    while True:
+        if pos >= len(buf):
+            raise ValueError("treedef: truncated varint")
+        b = buf[pos]
+        pos += 1
+        value |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return value, pos
+        shift += 7
+
+
+def _fields(buf: bytes):
+    """``(field number, value)`` of a protobuf message: an int for a varint,
+    bytes for a length-delimited field; any other wire type raises."""
+    pos = 0
+    while pos < len(buf):
+        tag, pos = _varint(buf, pos)
+        field, wire = tag >> 3, tag & 7
+        if wire == 0:
+            value, pos = _varint(buf, pos)
+        elif wire == 2:
+            n, pos = _varint(buf, pos)
+            if pos + n > len(buf):
+                raise ValueError("treedef: truncated field")
+            value, pos = buf[pos:pos + n], pos + n
+        else:
+            raise ValueError(f"treedef: unexpected wire type {wire} in "
+                             f"field {field}")
+        yield field, value
+
+
+def _dict_key_ids(buf: bytes) -> List[int]:
+    """DictKeysProto: ``repeated uint32 str_id = 1``, packed or not."""
+    ids: List[int] = []
+    for field, value in _fields(buf):
+        if field != 1:
+            raise ValueError(f"treedef: unexpected dict-keys field {field}")
+        if isinstance(value, int):
+            ids.append(value)
+        else:
+            pos = 0
+            while pos < len(value):
+                v, pos = _varint(value, pos)
+                ids.append(v)
+    return ids
+
+
+def treedef_keypaths(treedef: Union[str, bytes]) -> List[KeyPath]:
+    """Each leaf's key path, in leaf order, from a reference manifest's
+    ``treedef`` (hex string or bytes): a tuple of dict keys (str) and
+    list / tuple indices (int), as ``jax.tree_util.tree_flatten_with_path``
+    gives them.  The proto lists nodes in post-order (children before their
+    parent), each with its kind, arity and, for a dict, the ids of its keys
+    in an interned-string table.  Node kinds other than dict, list, tuple,
+    None and leaf raise ``ValueError``."""
+    buf = bytes.fromhex(treedef) if isinstance(treedef, str) else treedef
+    nodes, strings = [], []
+    for field, value in _fields(buf):
+        if field == 1 and isinstance(value, bytes):
+            nodes.append(value)
+        elif field == 2 and isinstance(value, bytes):
+            strings.append(value.decode("utf-8"))
+        else:
+            raise ValueError(f"treedef: unexpected field {field}")
+    stack: List[Any] = []
+    for raw in nodes:
+        arity, kind, key_ids = 0, 0, []
+        for field, value in _fields(raw):
+            if field == 1 and isinstance(value, int):
+                arity = value
+            elif field == 2 and isinstance(value, int):
+                kind = value
+            elif field == 3 and isinstance(value, bytes):
+                key_ids = _dict_key_ids(value)
+            else:
+                raise ValueError(f"treedef: unexpected node field {field}")
+        if kind not in _KIND_NAMES:
+            raise ValueError(f"treedef: node kind {kind} is not supported "
+                             "(only dict, list, tuple, None and leaves)")
+        if arity > len(stack):
+            raise ValueError(f"treedef: a {_KIND_NAMES[kind]} node of "
+                             f"arity {arity} has {len(stack)} children")
+        children = stack[len(stack) - arity:] if arity else []
+        del stack[len(stack) - arity:]
+        if kind == _LEAF:
+            stack.append(None)
+        elif kind == _NONE:
+            stack.append(())
+        elif kind == _DICT:
+            if len(key_ids) != arity:
+                raise ValueError(f"treedef: a dict of arity {arity} has "
+                                 f"{len(key_ids)} keys")
+            if any(i >= len(strings) for i in key_ids):
+                raise ValueError(f"treedef: dict key ids {key_ids} outside "
+                                 f"a table of {len(strings)} strings")
+            stack.append(tuple((strings[i], c)
+                               for i, c in zip(key_ids, children)))
+        else:
+            stack.append(tuple(enumerate(children)))
+    if len(stack) != 1:
+        raise ValueError(f"treedef: {len(stack)} roots")
+
+    out: List[KeyPath] = []
+
+    def walk(node, prefix):
+        if node is None:
+            out.append(prefix)
+            return
+        for key, child in node:
+            walk(child, prefix + (key,))
+
+    walk(stack[0], ())
+    return out
+
+
+def _path_name(keypath: KeyPath) -> str:
+    """A key path in :func:`flatten`'s ``a/b/c`` form."""
+    return "/".join(str(k) for k in keypath)
 
 
 def _unflatten(template: Any, leaves: List[Any]) -> Any:
@@ -186,27 +323,78 @@ def restore(root: str, step: Optional[int] = None, *,
             template: Dict[str, Any]) -> Tuple[Any, dict]:
     """Restore ``(tree, extra)`` of a committed step (default: the latest).
 
-    ``template`` gives the tree's structure (see the module docstring).
-    Raises ``ValueError`` when the leaf count, a leaf's dtype or a leaf's
-    shape disagrees with the manifest or the template."""
+    ``template`` names the subtree to restore (see the module docstring);
+    its leaves are found by key path among the saved tree's, from the
+    manifest's ``keypaths`` (the port's saves) or its decoded ``treedef``
+    (the reference's).  Raises ``ValueError`` when a template path is not
+    in the checkpoint, or a leaf's dtype or shape disagrees with the
+    manifest or the template."""
     if step is None:
         step = latest_step(root)
         if step is None:
             raise FileNotFoundError(f"no committed checkpoints under {root}")
     path, manifest = _read_manifest(root, step)
-    slots = flatten(template)
     metas = manifest["leaves"]
-    if len(slots) != len(metas):
-        raise ValueError(f"{path} holds {len(metas)} leaves; the template "
-                         f"has {len(slots)}")
-    saved_paths = manifest.get("keypaths")
-    if saved_paths is not None and saved_paths != [p for p, _ in slots]:
-        raise ValueError(f"{path}: key paths differ from the template")
+    saved = manifest.get("keypaths")
+    if saved is None:
+        if not manifest.get("treedef"):
+            raise ValueError(f"{path}: the manifest has neither key paths "
+                             "nor a treedef")
+        saved = [_path_name(kp) for kp in
+                 treedef_keypaths(manifest["treedef"])]
+    if len(saved) != len(metas):
+        raise ValueError(f"{path} holds {len(metas)} leaves; its tree "
+                         f"names {len(saved)}")
+    index = {name: i for i, name in enumerate(saved)}
+    slots = flatten(template)
+    missing = [key for key, _ in slots if key not in index]
+    if missing:
+        raise ValueError(f"{path}: key paths of the template are not in the "
+                         f"checkpoint: {missing[:3]}"
+                         f"{' ...' if len(missing) > 3 else ''} "
+                         f"({len(missing)} of {len(slots)} missing)")
     leaves = []
-    for i, ((key, want), meta) in enumerate(zip(slots, metas)):
+    for key, want in slots:
+        i = index[key]
+        meta = metas[i]
         if want is not None and list(want) != list(meta["shape"]):
             raise ValueError(f"{path}: leaf {key} has shape {meta['shape']},"
                              f" the template expects {list(want)}")
         leaves.append(_load_leaf(os.path.join(path, "arrays", f"{i:05d}.npy"),
                                  meta))
     return _unflatten(template, leaves), manifest.get("extra", {})
+
+
+def gc_checkpoints(root: str, keep_last: int = 0,
+                   protect: Iterable[int] = (), *,
+                   keep: Optional[Iterable[int]] = None,
+                   horizon: Optional[int] = None) -> List[int]:
+    """Delete old committed checkpoints, never touching ``protect`` steps
+    (checkpoints the validator has not finished).  Returns the deleted steps.
+
+    Two retention shapes, as the reference's ``gc_checkpoints``:
+      * recency window (default): keep the last ``keep_last`` steps
+        (``keep_last == 0`` keeps everything);
+      * explicit set: ``keep`` names exactly the steps to retain
+        (``protect`` still applies on top).
+
+    ``horizon`` (keep mode only) is the newest step the caller knew about
+    when it computed ``keep`` / ``protect``: a checkpoint committed after
+    it (step > horizon) survives this round.  It defaults to
+    ``max(keep | protect)``; an empty decision deletes nothing.
+    """
+    steps = list_steps(root)
+    protected = set(protect)
+    if keep is not None:
+        keep_set = set(keep) | protected
+        if horizon is None:
+            horizon = max(keep_set) if keep_set else None
+        candidates = [] if horizon is None else \
+            [s for s in steps if s not in keep_set and s <= horizon]
+    elif keep_last > 0:
+        candidates = [s for s in steps[:-keep_last] if s not in protected]
+    else:
+        candidates = []
+    for s in candidates:
+        shutil.rmtree(_step_dir(root, s), ignore_errors=True)
+    return candidates

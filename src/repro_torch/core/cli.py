@@ -12,10 +12,16 @@ The flags are the JAX package's (``python -m repro.core.cli``), with the
 impls named ``torch`` (plain PyTorch, the reference's ``xla``) and ``cuda``
 (the hand-written topk_mips kernels, the reference's ``pallas``), and one
 more: ``--device {cuda,cpu}``.  The default is ``cuda``; without a card the
-CLI raises instead of falling back to the CPU.  Flags of parts not yet
-ported (serving, the control plane, the fleet, hand-off, telemetry, the
-materialized engine, rerank modes, mmap token stores, the budget policy)
-raise ``NotImplementedError``.
+CLI raises instead of falling back to the CPU.  ``--mode rerank`` /
+``average_rank`` (with ``--run_file`` / ``--depth`` for their samplers),
+``--engine materialized`` (with ``--rerank_block``) and ``--token_backing
+mmap`` (with ``--mmap_dir`` and ``--token_fingerprint``) work as in the
+reference.  Flags of parts not yet ported raise ``NotImplementedError``:
+serving (``--serve*``), the control plane (``--keep_top_k``, ``--ema``,
+``--early_stop*``, ``--stop_file``, ``--ensemble_top_k``), the fleet
+(``--worker``, ``--worker_id``, ``--capabilities``, ``--lease_ttl``,
+``--max_abandons``), hand-off (``--handoff_spool``), telemetry
+(``--obs_*``), ``--scan_window`` and ``--policy budget``.
 """
 
 from __future__ import annotations
@@ -44,13 +50,10 @@ _NOT_PORTED = {
     "worker": False, "worker_id": None, "capabilities": None,
     "lease_ttl": None, "max_abandons": None, "handoff_spool": None,
     "obs_trace": None, "obs_report": False, "obs_metrics": None,
-    "mmap_dir": None, "token_fingerprint": None, "rerank_block": None,
     "scan_window": None,
 }
 #: (flag, value) pairs of ported flags whose value selects an unported part
-_NOT_PORTED_VALUES = {("engine", "materialized"), ("mode", "rerank"),
-                      ("mode", "average_rank"), ("token_backing", "mmap"),
-                      ("policy", "budget")}
+_NOT_PORTED_VALUES = {("policy", "budget")}
 
 
 @register_encoder("arch")
@@ -110,8 +113,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="where the encoder and the scoring run (default "
                          "cuda; raises when no GPU is visible)")
     ap.add_argument("--engine", default="streaming",
-                    help="validation data path: 'streaming' (the only one "
-                         "ported so far) or any @register_engine name")
+                    help="validation data path: 'streaming' fused "
+                         "encode->top-k (default), 'materialized' "
+                         "encode-all-then-retrieve, or any "
+                         "@register_engine name")
     ap.add_argument("--impl", default="torch",
                     help="retrieval top-k implementation: 'torch' (plain "
                          "PyTorch, default) or 'cuda' (the hand-written "
@@ -123,7 +128,21 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--staging_depth", type=int, default=2,
                     help="batches copied to the device ahead of compute")
     ap.add_argument("--token_backing", default="memory",
-                    choices=["memory", "mmap"])
+                    choices=["memory", "mmap"],
+                    help="TokenStore backing: host RAM (default) or "
+                         "memory-mapped files")
+    ap.add_argument("--mmap_dir", default=None,
+                    help="cache dir for --token_backing mmap (default: "
+                         "<output_dir>/token_cache); built once, reused "
+                         "across checkpoints and restarts")
+    ap.add_argument("--token_fingerprint", default="fast",
+                    choices=["fast", "full"],
+                    help="mmap cache key: 'fast' (default) is O(1) in "
+                         "corpus size but misses in-place mutations of the "
+                         "corpus middle; 'full' hashes every text")
+    ap.add_argument("--rerank_block", type=int, default=None,
+                    help="materialized rerank only: queries per candidate "
+                         "gather (default: sized from a 256 MiB budget)")
     ap.add_argument("--fp16", action="store_true",
                     help="accepted for CLI compatibility; the compute dtype "
                          "comes from the architecture config")
@@ -131,8 +150,12 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["f32", "bf16", "int8"],
                     help="scoring precision of the MIPS data path, recorded "
                          "in every ledger row")
-    ap.add_argument("--mode", default="retrieval")
-    ap.add_argument("--sampler", default="auto")
+    ap.add_argument("--mode", default="retrieval",
+                    help="'retrieval' (default), 'rerank', 'average_rank', "
+                         "or any @register_mode name")
+    ap.add_argument("--sampler", default="auto",
+                    help="corpus subset strategy (default 'auto': from "
+                         "--mode/--depth); any @register_sampler name")
     ap.add_argument("--depth", type=int, default=0,
                     help="subset depth (0 = full corpus); needs --run_file")
     ap.add_argument("--run_file", default=None,
@@ -185,6 +208,10 @@ def main(argv=None) -> int:
         except ValueError as e:
             ap.error(str(e))
         chosen_sampler = args.sampler
+    elif args.mode == "rerank":
+        chosen_sampler = "rerank_topk"
+    elif args.mode == "average_rank":
+        chosen_sampler = "qrel_pool"
     else:
         chosen_sampler = "run_topk" if args.depth else "full"
     if chosen_sampler in ("run_topk", "rerank_topk") and not args.run_file:
@@ -208,12 +235,18 @@ def main(argv=None) -> int:
     baseline_run = read_trec_run(args.run_file) if args.run_file else None
     sampler = SAMPLERS.get(chosen_sampler)(depth=args.depth)
 
+    mmap_dir = args.mmap_dir
+    if args.token_backing == "mmap" and not mmap_dir:
+        mmap_dir = os.path.join(args.output_dir, "token_cache")
     vcfg = ValidationConfig(metrics=tuple(args.metrics), mode=args.mode,
                             k=args.retrieve_k, batch_size=args.batch_size,
                             impl=args.impl, engine=args.engine,
                             chunk_size=args.chunk_size, staging=args.staging,
                             staging_depth=args.staging_depth,
                             token_backing=args.token_backing,
+                            mmap_dir=mmap_dir,
+                            token_fingerprint=args.token_fingerprint,
+                            rerank_block=args.rerank_block,
                             score_dtype=args.score_dtype,
                             write_run=args.write_run,
                             output_dir=args.output_dir,

@@ -1,38 +1,53 @@
-"""Streaming validation engine: encode -> top-k with no corpus matrix.
+"""Validation engines: streaming encode -> top-k, and the materialized path.
 
-The port of ``repro/core/engine.py`` for retrieval mode:
+The port of ``repro/core/engine.py``:
 
   1. :class:`TokenStore` pads the corpus once into fixed-shape
-     ``(chunk, L)`` token/mask chunks (memory backing).
+     ``(chunk, L)`` token/mask chunks, in host memory or (``backing=
+     "mmap"``) in memory-mapped files of the reference's on-disk format
+     (version 1), built once and reused across checkpoints and processes,
+     and by either package.
   2. :func:`staged_batches` copies the chunks to the device ahead of the
      consumer: each batch goes through pinned host memory with a
      ``non_blocking`` copy on a side CUDA stream, ``depth`` batches ahead,
      and the compute stream waits on the copy's event before using it.
-  3. A :class:`Stage` encodes each chunk and folds its scores into the
-     running ``(Q, k)`` top-k carry, so the ``(N, D)`` corpus embedding
-     matrix never exists.  Two impls route to two stages: ``torch`` (the
-     counterpart of the reference's ``xla``) does matmul + mask + a stable
-     sort merge in plain PyTorch; ``cuda`` (the counterpart of ``pallas``)
-     calls the hand-written topk_mips kernels.
+  3. A :class:`Stage` encodes each chunk and folds it into a device carry,
+     so the ``(N, D)`` corpus embedding matrix never exists.  Retrieval
+     mode folds scores into a running ``(Q, k)`` top-k: impl ``torch``
+     (the reference's ``xla``) in plain PyTorch, impl ``cuda`` (the
+     reference's ``pallas``) through the hand-written topk_mips kernels.
+     Rerank and average-rank modes gather each chunk's scores into the
+     per-query candidate slots (:class:`StreamRerankStage`); the engine
+     skips chunks that hold no candidate.
+  4. :class:`MaterializedEngine` encodes the whole corpus onto the device
+     first and then retrieves (:func:`repro_torch.core.retrieval.
+     retrieve_run`: the topk_mips kernels over the whole corpus under
+     ``cuda``) or reranks (:func:`~repro_torch.core.retrieval.rerank_run`).
 
-Rerank, the materialized and sharded engines, and mmap-backed stores wait
-for later slices of the port.
+The sharded stages, the scan-window dispatch and telemetry wait for later
+slices of the port.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
+import json
+import os
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.encoder import encode_tensor
 from repro_torch.core.precision import chunk_scores, validate_score_dtype
 from repro_torch.core.registry import (ENGINES, IMPLS, MODES, STAGES,
                                        register_engine, register_impl,
                                        register_mode, register_stage)
+from repro_torch.core.retrieval import (pad_candidates, rank_candidates,
+                                        rerank_run, retrieve_run)
 from repro_torch.data.corpus import Tokens, pad_batch
 from repro_torch.kernels.topk_mips import ops as mips_ops
 from repro_torch.kernels.topk_mips.ref import select_topk
@@ -54,37 +69,262 @@ def synchronize(device: torch.device) -> None:
 # ---------------------------------------------------------------------------
 
 
+_STORE_META = "store_meta.json"
+_STORE_TOKENS = "tokens.int32.bin"
+_STORE_MASK = "mask.bool.bin"
+_STORE_MANIFEST = "chunk_hashes.json"
+_STORE_VERSION = 1
+
+
+def _chunk_hash(texts: Sequence[Tokens]) -> str:
+    """Content hash of one chunk's texts (the unit of the full-fingerprint
+    manifest: a changed chunk hash means exactly that chunk must be
+    re-padded and re-written)."""
+    h = hashlib.sha1()
+    for t in texts:
+        h.update(np.asarray(list(t), np.int64).tobytes())
+        h.update(b"|")
+    return h.hexdigest()
+
+
+def _full_fingerprint(chunk_hashes: Sequence[str], *, n: int, max_len: int,
+                      chunk: int) -> str:
+    """Overall full-content fingerprint, derived from the per-chunk hashes
+    so the digest and the manifest can never disagree."""
+    h = hashlib.sha1()
+    h.update(f"v{_STORE_VERSION}:full:{n}:{max_len}:{chunk}".encode())
+    for ch in chunk_hashes:
+        h.update(ch.encode())
+    return h.hexdigest()
+
+
+def _store_fingerprint(texts: Sequence[Tokens], *, max_len: int,
+                       chunk: int, mode: str = "fast") -> str:
+    """Content fingerprint for mmap-cache reuse.
+
+    ``mode="fast"`` (default): geometry plus a hash of the first/last 16
+    texts.  Deliberately O(1) in corpus size — the point of the cache is to
+    NOT re-read millions of texts per checkpoint.  The documented hazard:
+    a caller that mutates the *middle* of a corpus in place (same length,
+    same edges) gets a stale cache hit; such callers must use a fresh
+    ``cache_dir`` or opt into ``mode="full"``.
+
+    ``mode="full"``: hashes every text — O(corpus) per build, but any
+    single-token mutation anywhere invalidates the cache.  The two modes
+    hash disjoint tag prefixes, so switching modes always rebuilds rather
+    than trusting the other mode's marker.
+    """
+    if mode not in ("fast", "full"):
+        raise ValueError(f"unknown fingerprint mode {mode!r} "
+                         "(expected 'fast' or 'full')")
+    if mode == "full":
+        n_chunks = -(-len(texts) // max(chunk, 1)) if len(texts) else 0
+        hashes = [_chunk_hash(texts[ci * chunk:(ci + 1) * chunk])
+                  for ci in range(n_chunks)]
+        return _full_fingerprint(hashes, n=len(texts), max_len=max_len,
+                                 chunk=chunk)
+    h = hashlib.sha1()
+    h.update(f"v{_STORE_VERSION}:{mode}:{len(texts)}:{max_len}:{chunk}"
+             .encode())
+    for t in list(texts[:16]) + list(texts[-16:]):
+        h.update(np.asarray(list(t), np.int64).tobytes())
+        h.update(b"|")
+    return h.hexdigest()
+
+
 @dataclasses.dataclass
 class TokenStore:
-    """Corpus tokens padded into fixed-shape chunks.
+    """Corpus tokens padded into fixed-shape device-friendly chunks.
 
-    ``tokens``/``mask`` are ``(n_chunks, chunk, L)`` host arrays; the final
-    ragged chunk is zero-padded and ``rows_valid`` says how many of its rows
-    are real."""
+    ``tokens``/``mask`` are ``(n_chunks, chunk, L)`` host arrays; every chunk
+    has the same shape (the final ragged chunk is zero-padded and masked by
+    ``n_valid``), so every step sees one shape.  With
+    ``backing="mmap"`` they are read-only ``numpy.memmap`` views over files
+    in ``cache_dir`` and only the staged chunks ever occupy host RAM.
+    """
 
     tokens: np.ndarray          # (n_chunks, chunk, L) int32
     mask: np.ndarray            # (n_chunks, chunk, L) bool
     chunk: int
     n_texts: int
-    backing: str = "memory"
+    backing: str = "memory"     # memory | mmap
+    cache_dir: Optional[str] = None
+    reused: bool = False        # mmap only: True when cache files were reused
+    rebuilt_chunks: int = 0     # chunks padded+written by THIS build (0 on a
+                                # cache hit; < n_chunks on a full-fingerprint
+                                # incremental rebuild via the hash manifest)
 
     @classmethod
     def build(cls, texts: Sequence[Tokens], *, max_len: int, chunk: int,
-              backing: str = "memory") -> "TokenStore":
-        if backing != "memory":
-            raise NotImplementedError(f"TokenStore backing {backing!r} is "
-                                      "not yet ported (memory only)")
+              backing: str = "memory", cache_dir: Optional[str] = None,
+              fingerprint: str = "fast") -> "TokenStore":
+        """Pad ``texts`` into ``(n_chunks, chunk, max_len)`` token/mask arrays.
+
+        ``backing="memory"`` (default) holds both arrays in host RAM.
+
+        ``backing="mmap"`` spills them to memory-mapped files under
+        ``cache_dir`` (required), built once and reused by every later
+        ``build`` with the same geometry + content fingerprint — across
+        checkpoints AND across processes.  ``fingerprint`` picks the cache
+        key: ``"fast"`` (default) is O(1) in corpus size (geometry + edge
+        texts — a *middle* mutation with unchanged edges is a documented
+        stale hit; use a fresh ``cache_dir`` or ``"full"``), ``"full"``
+        hashes every text so any in-place mutation rebuilds the cache (see
+        :func:`_store_fingerprint`).  On-disk format (version 1):
+
+        * ``store_meta.json`` — ``{"version", "n_texts", "chunk", "max_len",
+          "n_chunks", "fingerprint"}``; written LAST, so a torn build (crash
+          mid-write) is never mistaken for a valid cache.
+        * ``tokens.int32.bin`` — raw C-order ``(n_chunks, chunk, max_len)``
+          little-endian int32, zero-padded past each text's length and past
+          ``n_texts`` in the final ragged chunk.
+        * ``mask.bool.bin`` — raw C-order ``(n_chunks, chunk, max_len)``
+          1-byte bool, ``True`` exactly on real token positions.
+        * ``chunk_hashes.json`` — ``fingerprint="full"`` only: the per-chunk
+          content-hash manifest ``{"version", "hashes": [sha1, ...]}``.  On a
+          rebuild with unchanged geometry, only chunks whose hash differs
+          from the manifest are re-padded and re-written (the memmaps are
+          opened ``r+``), so full-fidelity revalidation costs O(changed
+          chunks) of padding/IO instead of O(corpus) — change detection
+          itself is a hash pass, which is what ``full`` already paid.
+          Written immediately before the meta marker; fast-mode rebuilds
+          delete it so it can never describe bins they rewrote.
+
+        The build itself streams chunk by chunk, so peak host memory during
+        construction is ``O(chunk x max_len)`` regardless of corpus size;
+        afterwards the maps are reopened read-only (``mode="r"``) so the
+        cache cannot be corrupted by a stray write.
+        """
+        if fingerprint not in ("fast", "full"):
+            raise ValueError(f"unknown fingerprint mode {fingerprint!r} "
+                             "(expected 'fast' or 'full')")
         n = len(texts)
         chunk = max(1, chunk)
         n_chunks = -(-n // chunk) if n else 0
-        toks = np.zeros((n_chunks, chunk, max_len), np.int32)
-        mask = np.zeros((n_chunks, chunk, max_len), bool)
-        for ci in range(n_chunks):
-            part = list(texts[ci * chunk:(ci + 1) * chunk])
-            t, m = pad_batch(part, max_len)
-            toks[ci, :len(part)] = t
-            mask[ci, :len(part)] = m
-        return cls(tokens=toks, mask=mask, chunk=chunk, n_texts=n)
+        shape = (n_chunks, chunk, max_len)
+        if backing == "memory":
+            toks = np.zeros(shape, np.int32)
+            mask = np.zeros(shape, bool)
+            for ci in range(n_chunks):
+                part = list(texts[ci * chunk:(ci + 1) * chunk])
+                t, m = pad_batch(part, max_len)
+                toks[ci, :len(part)] = t
+                mask[ci, :len(part)] = m
+            return cls(tokens=toks, mask=mask, chunk=chunk, n_texts=n,
+                       rebuilt_chunks=n_chunks)
+        if backing != "mmap":
+            raise ValueError(f"unknown TokenStore backing {backing!r} "
+                             "(expected 'memory' or 'mmap')")
+        if not cache_dir:
+            raise ValueError("TokenStore backing='mmap' needs a cache_dir")
+        os.makedirs(cache_dir, exist_ok=True)
+        meta_path = os.path.join(cache_dir, _STORE_META)
+        tok_path = os.path.join(cache_dir, _STORE_TOKENS)
+        mask_path = os.path.join(cache_dir, _STORE_MASK)
+        manifest_path = os.path.join(cache_dir, _STORE_MANIFEST)
+        chunk_hashes: Optional[List[str]] = None
+        if fingerprint == "full":
+            chunk_hashes = [_chunk_hash(texts[ci * chunk:(ci + 1) * chunk])
+                            for ci in range(n_chunks)]
+            fp = _full_fingerprint(chunk_hashes, n=n, max_len=max_len,
+                                   chunk=chunk)
+        else:
+            fp = _store_fingerprint(texts, max_len=max_len, chunk=chunk,
+                                    mode=fingerprint)
+        meta = {"version": _STORE_VERSION, "n_texts": n, "chunk": chunk,
+                "max_len": max_len, "n_chunks": n_chunks, "fingerprint": fp}
+        n_slots = int(np.prod(shape))
+        stored = None
+        if os.path.exists(meta_path):
+            try:
+                with open(meta_path) as f:
+                    stored = json.load(f)
+            except ValueError:      # torn/truncated meta: rebuild, not crash
+                stored = None
+        # a valid marker alone is not enough: the bins must exist with
+        # exactly the bytes the marker promises (a partially copied or
+        # hand-cleaned cache_dir must rebuild, not crash or mis-map)
+        sizes_ok = True
+        if n_chunks:
+            try:
+                sizes_ok = (os.path.getsize(tok_path) == n_slots * 4
+                            and os.path.getsize(mask_path) == n_slots)
+            except OSError:
+                sizes_ok = False
+        same_geometry = stored is not None and all(
+            stored.get(k) == meta[k]
+            for k in ("version", "n_texts", "chunk", "max_len", "n_chunks"))
+        reused = (same_geometry and sizes_ok
+                  and stored.get("fingerprint") == fp)
+        rebuilt: List[int] = []
+        if not reused and n_chunks:
+            # full-fingerprint incremental rebuild: when the geometry is
+            # unchanged and the previous *full* build left a per-chunk hash
+            # manifest, only chunks whose hash changed are re-padded and
+            # re-written — O(changed chunks) instead of O(corpus).  The
+            # manifest is trustworthy because every code path that rewrites
+            # the bins either rewrites it too (full builds, below) or
+            # removes it (fast builds), and a reused cache touches neither.
+            prev_hashes: Optional[List[str]] = None
+            if same_geometry and sizes_ok and chunk_hashes is not None:
+                try:
+                    with open(manifest_path) as f:
+                        prev = json.load(f)
+                    if (prev.get("version") == _STORE_VERSION
+                            and isinstance(prev.get("hashes"), list)
+                            and len(prev["hashes"]) == n_chunks):
+                        prev_hashes = prev["hashes"]
+                except (OSError, ValueError):
+                    prev_hashes = None
+            incremental = prev_hashes is not None
+            rebuilt = ([ci for ci in range(n_chunks)
+                        if prev_hashes[ci] != chunk_hashes[ci]]
+                       if incremental else list(range(n_chunks)))
+            # invalidate the old commit marker FIRST: if this rebuild dies
+            # mid-write, no stale meta can bless the half-rewritten bins
+            if os.path.exists(meta_path):
+                os.remove(meta_path)
+            if not incremental and os.path.exists(manifest_path):
+                # bins are about to stop matching the old manifest; a fast
+                # build writes no replacement, so the stale one must go
+                os.remove(manifest_path)
+            wmode = "r+" if incremental else "w+"
+            wt = np.memmap(tok_path, dtype=np.int32, mode=wmode, shape=shape)
+            wm = np.memmap(mask_path, dtype=bool, mode=wmode, shape=shape)
+            for ci in rebuilt:
+                part = list(texts[ci * chunk:(ci + 1) * chunk])
+                t, m = pad_batch(part, max_len)
+                wt[ci] = 0
+                wm[ci] = False
+                wt[ci, :len(part)] = t
+                wm[ci, :len(part)] = m
+            wt.flush()
+            wm.flush()
+            del wt, wm
+        if not reused:
+            if chunk_hashes is not None:
+                # manifest before meta: a crash in between leaves no meta,
+                # forcing a rebuild — never a meta blessing a stale manifest
+                tmp = manifest_path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump({"version": _STORE_VERSION,
+                               "hashes": chunk_hashes}, f)
+                os.replace(tmp, manifest_path)
+            # commit marker: meta written LAST, and atomically (a crash
+            # mid-write must leave no half-valid marker behind)
+            tmp = meta_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(meta, f)
+            os.replace(tmp, meta_path)
+        if n_chunks:
+            toks = np.memmap(tok_path, dtype=np.int32, mode="r", shape=shape)
+            mask = np.memmap(mask_path, dtype=bool, mode="r", shape=shape)
+        else:
+            toks = np.zeros(shape, np.int32)
+            mask = np.zeros(shape, bool)
+        return cls(tokens=toks, mask=mask, chunk=chunk, n_texts=n,
+                   backing="mmap", cache_dir=cache_dir, reused=reused,
+                   rebuilt_chunks=len(rebuilt))
 
     @property
     def n_chunks(self) -> int:
@@ -92,6 +332,58 @@ class TokenStore:
 
     def rows_valid(self, ci: int) -> int:
         return min(self.chunk, self.n_texts - ci * self.chunk)
+
+    def chunks(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, int,
+                                       int]]:
+        """Yield (tokens, mask, base_row, n_valid_rows) per chunk, as CPU
+        tensors."""
+        for ci in range(self.n_chunks):
+            yield (torch.from_numpy(np.array(self.tokens[ci])),
+                   torch.from_numpy(np.array(self.mask[ci])),
+                   ci * self.chunk, self.rows_valid(ci))
+
+    def candidate_map(self, cand_idx: np.ndarray) -> "CandidateMap":
+        """Precompute candidate membership against THIS store's chunking.
+
+        ``cand_idx`` is the padded ``(Q, Cmax)`` slot map of global corpus
+        rows from :func:`repro_torch.core.retrieval.pad_candidates` (-1 = pad).
+        The result is what lets rerank stages touch only the corpus that
+        matters: a per-chunk ``(chunk,)`` row-membership mask (is this row
+        any query's candidate?) plus per-chunk counts the engine uses to
+        skip — never stage, never encode — chunks with zero candidate rows.
+        Built once per validator lifetime, like the store itself.
+        """
+        rows = np.unique(cand_idx[cand_idx >= 0])
+        rows = rows[rows < self.n_texts]
+        row_mask = np.zeros((self.n_chunks, self.chunk), bool)
+        if rows.size and self.n_chunks:
+            row_mask[rows // self.chunk, rows % self.chunk] = True
+        return CandidateMap(slot_map=np.asarray(cand_idx, np.int32),
+                            row_mask=row_mask,
+                            chunk_counts=row_mask.sum(axis=1),
+                            chunk=self.chunk)
+
+
+@dataclasses.dataclass
+class CandidateMap:
+    """Per-chunk candidate membership for the rerank stages (built on the
+    TokenStore side, where the chunk geometry lives).
+
+    ``slot_map`` is the ``(Q, Cmax)`` candidate slot map (global
+    corpus rows, -1 = pad); ``row_mask[ci]`` is the ``(chunk,)`` mask of
+    rows in chunk ``ci`` that appear in ANY query's candidate set; and
+    ``chunk_counts[ci]`` is its popcount — zero means the chunk holds no
+    candidates and the engine skips it entirely (no staging, no encode).
+    """
+
+    slot_map: np.ndarray        # (Q, Cmax) int32 global rows, -1 = pad
+    row_mask: np.ndarray        # (n_chunks, chunk) bool candidate membership
+    chunk_counts: np.ndarray    # (n_chunks,) int per-chunk candidate rows
+    chunk: int
+
+    def has_candidates(self, ci: int) -> bool:
+        return bool(self.chunk_counts[ci])
+
 
 
 # ---------------------------------------------------------------------------
@@ -116,13 +408,15 @@ def staged_batches(store: TokenStore, schedule: Sequence[Tuple[int, int]], *,
     ``non_blocking`` copy on a side stream; the consumer's stream waits on
     that copy's event, and ``record_stream`` keeps the allocator from
     reusing the buffer before the consumer is done.  ``depth=1`` stages
-    each batch just before it is used."""
+    each batch just before it is used.  With an mmap-backed store only the
+    staged chunks are ever read into host memory."""
     depth = max(1, depth)
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
 
     def put(arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(arr)
+        # a read-only memmap chunk is read into host memory here
+        t = torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
         return t.pin_memory().to(device, non_blocking=True) if cuda else t
 
     def stage(ci: int):
@@ -242,6 +536,121 @@ class CudaStreamTopKStage(StreamTopKStage):
                                         score_dtype=self.score_dtype)
 
 
+class StreamRerankStage(Stage):
+    """Rerank / average-rank modes: the carry is the padded per-query
+    candidate score matrix (Q, Cmax); each chunk's scores are gathered into
+    it where the candidates' global rows fall inside the chunk.
+
+    With a ``store`` the stage precomputes a :class:`CandidateMap`, so the
+    engine skips chunks with no candidate row (:meth:`wants_chunk`) and a
+    step masks the rows no query names to ``-inf`` before the gather (the
+    gather only reads member rows, so the carry is what an unmasked step
+    gives).  ``compact=True`` packs the candidate rows into dense
+    pseudo-chunks (:meth:`_pack_candidates`) when that at least halves the
+    chunks to encode; the engine then streams ``store_override``.
+    Finalization is :func:`repro_torch.core.retrieval.rank_candidates`,
+    the stable selection the materialized ``rerank_run`` uses too, so both
+    engines give the same run from the same score matrix."""
+
+    name = "rerank"
+
+    def __init__(self, encode_fn: Callable, *, k: int, query_ids: List[str],
+                 doc_ids: List[str], per_query: Dict[str, List[str]],
+                 store: Optional[TokenStore] = None,
+                 score_dtype: str = "f32", compact: bool = False):
+        self.encode_fn = encode_fn
+        self.query_ids = query_ids
+        self.k = k
+        self.score_dtype = validate_score_dtype(score_dtype)
+        cand_idx, self.cands = pad_candidates(query_ids, doc_ids, per_query)
+        self.cmap = store.candidate_map(cand_idx) \
+            if store is not None and store.n_chunks else None
+        self.store_override: Optional[TokenStore] = None
+        if compact and self.cmap is not None:
+            packed = self._pack_candidates(store, cand_idx)
+            if packed is not None:
+                cand_idx, self.store_override = packed
+                self.cmap = self.store_override.candidate_map(cand_idx)
+        self.cand_idx = cand_idx
+        self._device_cache: Dict[tuple, torch.Tensor] = {}
+
+    @staticmethod
+    def _pack_candidates(store: TokenStore, cand_idx: np.ndarray):
+        """Pack candidate token rows into dense pseudo-chunks.
+
+        Returns ``(remapped_cand_idx, compact_store)``, or ``None`` when the
+        compacted store would need more than half the chunks the
+        chunk-skipping schedule already encodes.  Costs one host gather of
+        O(candidate rows x L) tokens, once per stage."""
+        rows = np.unique(cand_idx[cand_idx >= 0])
+        rows = rows[rows < store.n_texts]
+        if not rows.size or not store.n_chunks:
+            return None
+        row_mask = np.zeros((store.n_chunks, store.chunk), bool)
+        row_mask[rows // store.chunk, rows % store.chunk] = True
+        surviving = int((row_mask.any(axis=1)).sum())
+        n_compact = -(-int(rows.size) // store.chunk)
+        if n_compact * 2 > surviving:
+            return None
+        L = store.tokens.shape[2]
+        flat_t = store.tokens.reshape(store.n_chunks * store.chunk, L)
+        flat_m = store.mask.reshape(store.n_chunks * store.chunk, L)
+        toks = np.zeros((n_compact, store.chunk, L), np.int32)
+        mask = np.zeros((n_compact, store.chunk, L), bool)
+        toks.reshape(-1, L)[:rows.size] = flat_t[rows]   # memmap-safe copy
+        mask.reshape(-1, L)[:rows.size] = flat_m[rows]
+        compact = TokenStore(tokens=toks, mask=mask, chunk=store.chunk,
+                             n_texts=int(rows.size))
+        remapped = np.where(
+            cand_idx >= 0,
+            np.searchsorted(rows, np.clip(cand_idx, 0, None))
+            .astype(np.int32),
+            np.int32(-1))
+        return np.asarray(remapped, np.int32), compact
+
+    def wants_chunk(self, ci: int) -> bool:
+        """False for chunks holding no candidate row: the engine neither
+        stages nor encodes them (such a chunk writes no slot)."""
+        return self.cmap is None or self.cmap.has_candidates(ci)
+
+    def _on_device(self, key, host: np.ndarray,
+                   device: torch.device) -> torch.Tensor:
+        t = self._device_cache.get((key, device))
+        if t is None:
+            t = torch.from_numpy(np.ascontiguousarray(host)).to(device)
+            self._device_cache[(key, device)] = t
+        return t
+
+    def _row_mask(self, ci: int, chunk: int,
+                  device: torch.device) -> torch.Tensor:
+        """Device-cached (chunk,) membership mask of chunk ``ci`` (all True
+        when the stage was built without a store)."""
+        if self.cmap is None:
+            return self._on_device("all", np.ones((chunk,), bool), device)
+        return self._on_device(("rows", ci), self.cmap.row_mask[ci], device)
+
+    def init(self, q_emb):
+        return torch.full((q_emb.shape[0], self.cand_idx.shape[1]),
+                          float("-inf"), device=q_emb.device)
+
+    def step(self, params, q_emb, carry, toks, mask, base, n_valid):
+        chunk = toks.shape[0]
+        ci = base // (self.cmap.chunk if self.cmap is not None
+                      else max(chunk, 1))
+        emb = self.encode_fn(params, toks, mask)               # (chunk, D)
+        s = chunk_scores(q_emb, emb, self.score_dtype)         # (Q, chunk)
+        s = s.masked_fill(~self._row_mask(ci, chunk, s.device)[None, :],
+                          float("-inf"))
+        cand_idx = self._on_device("cand_idx", self.cand_idx, s.device)
+        local = cand_idx - base
+        hit = (cand_idx >= 0) & (local >= 0) & (local < n_valid)
+        g = torch.gather(s, 1, local.clamp(0, chunk - 1).long())
+        return torch.where(hit, g, carry)
+
+    def finalize(self, carry):
+        return rank_candidates(self.query_ids, carry, self.cands, k=self.k)
+
+
 # ---------------------------------------------------------------------------
 # Registry wiring: modes route to impls route to stage names
 # ---------------------------------------------------------------------------
@@ -258,32 +667,61 @@ def _route_impl_cuda() -> str:
 
 
 @register_mode("retrieval")
-def _route_mode_retrieval(*, impl: str) -> str:
+def _route_mode_retrieval(*, impl: str, per_query=None) -> str:
     return IMPLS.get(impl)()
 
 
+@register_mode("rerank")
+@register_mode("average_rank")
+def _route_mode_rerank(*, impl: str, per_query=None) -> str:
+    if not per_query:           # no candidate lists -> plain retrieval path
+        return IMPLS.get(impl)()
+    return "rerank"
+
+
 @register_stage("topk_torch")
-def _stage_topk_torch(encode_fn, *, k, query_ids, doc_ids,
-                      score_dtype="f32") -> Stage:
+def _stage_topk_torch(encode_fn, *, k, query_ids, doc_ids, per_query=None,
+                      store=None, score_dtype="f32",
+                      rerank_compact=False) -> Stage:
     return StreamTopKStage(encode_fn, k=k, query_ids=query_ids,
                            doc_ids=doc_ids, score_dtype=score_dtype)
 
 
 @register_stage("topk_cuda")
-def _stage_topk_cuda(encode_fn, *, k, query_ids, doc_ids,
-                     score_dtype="f32") -> Stage:
+def _stage_topk_cuda(encode_fn, *, k, query_ids, doc_ids, per_query=None,
+                     store=None, score_dtype="f32",
+                     rerank_compact=False) -> Stage:
     return CudaStreamTopKStage(encode_fn, k=k, query_ids=query_ids,
                                doc_ids=doc_ids, score_dtype=score_dtype)
 
 
+@register_stage("rerank")
+def _stage_rerank(encode_fn, *, k, query_ids, doc_ids, per_query=None,
+                  store=None, score_dtype="f32",
+                  rerank_compact=True) -> Stage:
+    return StreamRerankStage(encode_fn, k=max(k, 1000), query_ids=query_ids,
+                             doc_ids=doc_ids, per_query=per_query,
+                             store=store, score_dtype=score_dtype,
+                             compact=rerank_compact)
+
+
 def make_stage(encode_fn: Callable, *, mode: str, impl: str, k: int,
                query_ids: List[str], doc_ids: List[str],
-               score_dtype: str = "f32") -> Stage:
-    """Route (mode, impl) to a registered Stage; unknown names raise listing
-    the registered alternatives."""
-    name = MODES.get(mode)(impl=impl)
+               per_query: Optional[Dict[str, List[str]]] = None,
+               store: Optional[TokenStore] = None,
+               score_dtype: str = "f32",
+               rerank_compact: bool = True) -> Stage:
+    """Route (mode, impl) to a registered Stage: the ``mode`` route picks a
+    stage name (through the ``impl`` route for retrieval, and for rerank
+    modes without candidate lists), the name a stage factory.  ``store``,
+    the corpus TokenStore, lets the rerank stage skip candidate-free chunks
+    (and, with ``rerank_compact``, pack sparse candidate rows).  Unknown
+    names raise listing the registered alternatives."""
+    name = MODES.get(mode)(impl=impl, per_query=per_query)
     return STAGES.get(name)(encode_fn, k=k, query_ids=query_ids,
-                            doc_ids=doc_ids, score_dtype=score_dtype)
+                            doc_ids=doc_ids, per_query=per_query,
+                            store=store, score_dtype=score_dtype,
+                            rerank_compact=rerank_compact)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +731,9 @@ def make_stage(encode_fn: Callable, *, mode: str, impl: str, k: int,
 
 class StreamingEngine:
     """Drive a Stage over a TokenStore: peak embedding memory is
-    O(chunk x D + Q x k); ``staging_depth`` batches are staged ahead."""
+    O(chunk x D + Q x k); ``staging_depth`` batches are staged ahead.
+    Stages with ``wants_chunk`` (rerank) prune the schedule before staging,
+    so skipped chunks are never read off the store."""
 
     name = "streaming"
 
@@ -328,12 +768,18 @@ class StreamingEngine:
         t_query = time.time() - t0
 
         t0 = time.time()
-        store = self.doc_store
+        # a compacting rerank stage streams its own packed store
+        store = getattr(self.stage, "store_override", None) or self.doc_store
         carry = self.stage.init(q_emb)
+        schedule = plan_schedule(store.n_chunks)
+        # a rerank stage drops chunks with no candidate row before staging
+        wants = getattr(self.stage, "wants_chunk", None)
+        if wants is not None:
+            schedule = [(ci, w) for ci, w in schedule if wants(ci)]
         batches = staged_batches(
-            store, plan_schedule(store.n_chunks), device=device,
+            store, schedule, device=device,
             depth=1 if self.staging == "sync" else self.staging_depth)
-        for ci, (toks, mask) in enumerate(batches):
+        for (ci, _), (toks, mask) in zip(schedule, batches):
             carry = self.stage.step(params, q_emb, carry, toks, mask,
                                     store.chunk * ci, store.rows_valid(ci))
         synchronize(device)
@@ -347,6 +793,78 @@ class StreamingEngine:
         timings = {"encode_corpus_s": t_stream, "encode_query_s": t_query,
                    "retrieve_s": t_final,
                    "total_s": t_query + t_stream + t_final}
+        return run, scores, timings
+
+
+class MaterializedEngine:
+    """Encode everything, then retrieve or rerank: the reference's legacy
+    path behind the same engine interface, kept for A/B runs against the
+    streaming engine.
+
+    The ``(N, D)`` corpus embeddings stay on the device: bf16-resident
+    under ``score_dtype="bf16"`` (half the memory; the kernels and the
+    rerank path read the bf16 values as they are), f32 otherwise, int8
+    quantized at score time.  Each phase ends with a device synchronise
+    before its clock is read."""
+
+    name = "materialized"
+
+    def __init__(self, spec, doc_texts: List[Tokens], query_texts: List[Tokens],
+                 *, mode: str, k: int, impl: str, batch_size: int,
+                 query_ids: List[str], doc_ids: List[str],
+                 per_query: Optional[Dict[str, List[str]]] = None,
+                 rerank_block: Optional[int] = None,
+                 score_dtype: str = "f32"):
+        self.spec = spec
+        self.doc_texts = doc_texts
+        self.query_texts = query_texts
+        self.mode = mode
+        self.k = k
+        self.impl = impl
+        self.batch_size = batch_size
+        self.query_ids = query_ids
+        self.doc_ids = doc_ids
+        self.per_query = per_query
+        # queries per rerank candidate gather (None = sized from
+        # rerank_run's memory budget)
+        self.rerank_block = rerank_block
+        self.score_dtype = validate_score_dtype(score_dtype)
+
+    @torch.inference_mode()
+    def run(self, params) -> Tuple[Run, Scores, Dict[str, float]]:
+        device = self.spec.device
+        params = to_torch_tree(params, device)
+        t0 = time.time()
+        c_emb, _ = encode_tensor(self.spec.encode_passage, params,
+                                 self.doc_texts, max_len=self.spec.p_max_len,
+                                 batch_size=self.batch_size, device=device)
+        if self.score_dtype == "bf16":
+            c_emb = c_emb.to(torch.bfloat16)
+        synchronize(device)
+        t_corpus = time.time() - t0
+        t0 = time.time()
+        q_emb, _ = encode_tensor(self.spec.encode_query, params,
+                                 self.query_texts, max_len=self.spec.q_max_len,
+                                 batch_size=self.batch_size, device=device)
+        synchronize(device)
+        t_query = time.time() - t0
+
+        t0 = time.time()
+        if self.mode in ("rerank", "average_rank") and self.per_query:
+            run, scores = rerank_run(self.query_ids, q_emb, self.doc_ids,
+                                     c_emb, self.per_query,
+                                     k=max(self.k, 1000),
+                                     q_block=self.rerank_block,
+                                     score_dtype=self.score_dtype)
+        else:
+            run, scores = retrieve_run(self.query_ids, q_emb, self.doc_ids,
+                                       c_emb, k=self.k, impl=self.impl,
+                                       score_dtype=self.score_dtype)
+        synchronize(device)
+        t_retrieve = time.time() - t0
+        timings = {"encode_corpus_s": t_corpus, "encode_query_s": t_query,
+                   "retrieve_s": t_retrieve,
+                   "total_s": t_corpus + t_query + t_retrieve}
         return run, scores, timings
 
 
@@ -372,21 +890,39 @@ def chunk_geometry(vcfg, n_docs: int) -> Tuple[int, int]:
     return chunk, max(1, vcfg.batch_size)
 
 
+def doc_cache_dir(mmap_dir: Optional[str], index: int = 0) -> Optional[str]:
+    """Cache subdirectory of the ``index``-th distinct corpus TokenStore
+    under ``mmap_dir``: ``corpus_tokens`` for the first (the reference's
+    name, so either package reuses the other's cache), numbered siblings
+    after it."""
+    if not mmap_dir:
+        return None
+    name = "corpus_tokens" if index == 0 else f"corpus_tokens_{index}"
+    return os.path.join(mmap_dir, name)
+
+
 @register_engine("streaming")
 def make_streaming_engine(spec, store: ValidationStore, vcfg):
-    """The default encode->top-k data path (see module docstring)."""
+    """The default encode->fold data path (see module docstring)."""
     chunk, q_chunk = chunk_geometry(vcfg, len(store.doc_texts))
     doc_store = store.doc_store
     if doc_store is None:
-        doc_store = TokenStore.build(store.doc_texts, max_len=spec.p_max_len,
-                                     chunk=chunk, backing=vcfg.token_backing)
+        if vcfg.token_backing == "mmap" and not vcfg.mmap_dir:
+            raise ValueError("token_backing='mmap' needs mmap_dir")
+        doc_store = TokenStore.build(
+            store.doc_texts, max_len=spec.p_max_len, chunk=chunk,
+            backing=vcfg.token_backing,
+            cache_dir=doc_cache_dir(vcfg.mmap_dir),
+            fingerprint=vcfg.token_fingerprint)
     query_store = store.query_store
     if query_store is None:
         query_store = TokenStore.build(store.query_texts,
                                        max_len=spec.q_max_len, chunk=q_chunk)
     stage = make_stage(spec.encode_passage, mode=vcfg.mode, impl=vcfg.impl,
                        k=vcfg.k, query_ids=store.query_ids,
-                       doc_ids=store.doc_ids, score_dtype=vcfg.score_dtype)
+                       doc_ids=store.doc_ids, per_query=store.per_query,
+                       store=doc_store, score_dtype=vcfg.score_dtype,
+                       rerank_compact=vcfg.rerank_compact)
     return StreamingEngine(spec, doc_store, query_store, stage,
                            staging=vcfg.staging,
                            staging_depth=vcfg.staging_depth)
@@ -395,6 +931,19 @@ def make_streaming_engine(spec, store: ValidationStore, vcfg):
 # the suite routes the corpus TokenStore through its shared cache for every
 # factory carrying this attribute
 make_streaming_engine.uses_token_stores = True
+
+
+@register_engine("materialized")
+def make_materialized_engine(spec, store: ValidationStore, vcfg):
+    """The encode-all-then-retrieve path, for A/B runs."""
+    return MaterializedEngine(spec, store.doc_texts, store.query_texts,
+                              mode=vcfg.mode, k=vcfg.k, impl=vcfg.impl,
+                              batch_size=vcfg.batch_size,
+                              query_ids=store.query_ids,
+                              doc_ids=store.doc_ids,
+                              per_query=store.per_query,
+                              rerank_block=vcfg.rerank_block,
+                              score_dtype=vcfg.score_dtype)
 
 
 def make_engine(spec, store: ValidationStore, vcfg):

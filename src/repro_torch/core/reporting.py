@@ -79,3 +79,13 @@ class MultiLogger(BaseLogger):
     def log(self, step: int, metrics: Dict[str, float]) -> None:
         for lg in self.loggers:
             lg.log(step, metrics)
+
+
+class MemoryLogger(BaseLogger):
+    def __init__(self):
+        self.records: List[tuple] = []
+        self._lock = threading.Lock()
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        with self._lock:
+            self.records.append((step, dict(metrics)))

@@ -167,3 +167,12 @@ def _make_random(depth: int = 0) -> RandomSubset:
 @register_sampler("rerank_topk")
 def _make_rerank_topk(depth: int = 0) -> RerankTopK:
     return RerankTopK(depth=depth or 100)
+
+
+def write_subset_jsonl(subset: SubsetResult, corpus: dict, out_path: str):
+    """The splitter CLI's output: a pre-tokenized corpus JSONL restricted to
+    the subset (paper §3 --output_dir)."""
+    import json
+    with open(out_path, "w") as f:
+        for did in subset.doc_ids:
+            f.write(json.dumps({"text_id": did, "text": corpus[did]}) + "\n")

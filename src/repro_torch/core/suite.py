@@ -17,7 +17,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.engine import (TokenStore, ValidationStore,
-                                     chunk_geometry, make_engine)
+                                     chunk_geometry, doc_cache_dir,
+                                     make_engine)
 from repro_torch.core.registry import ENGINES, MODES, resolve_sampler
 from repro_torch.core.samplers import SubsetResult
 from repro_torch.core.workqueue import WorkUnit
@@ -31,16 +32,22 @@ class ValidationConfig:
     override per task."""
 
     metrics: tuple = ("MRR@10",)
-    mode: str = "retrieval"          # retrieval (rerank: a later slice)
+    mode: str = "retrieval"          # retrieval | rerank | average_rank
     k: int = 100                     # retrieval cut-off
     batch_size: int = 64
     impl: str = "torch"              # torch | cuda (the topk_mips kernels)
-    engine: str = "streaming"
+    engine: str = "streaming"        # streaming | materialized
     chunk_size: Optional[int] = None  # streaming chunk rows; None -> batch_size
     staging: str = "double_buffered"  # double_buffered | sync host->device
     staging_depth: int = 2           # batches staged ahead of compute
-    token_backing: str = "memory"    # memory (mmap: a later slice)
+    token_backing: str = "memory"    # memory | mmap (out-of-core TokenStore)
+    mmap_dir: Optional[str] = None   # cache dir for token_backing="mmap"
+    token_fingerprint: str = "fast"  # fast (O(1)) | full (content hash)
+    rerank_block: Optional[int] = None  # queries per materialized rerank
+                                     # candidate gather (None = auto budget)
     score_dtype: str = "f32"         # scoring precision: f32 | bf16 | int8
+    rerank_compact: bool = True      # pack sparse rerank candidates into
+                                     # dense pseudo-chunks before encoding
     write_run: bool = False
     output_dir: Optional[str] = None
     run_tag: str = "asyncval"
@@ -166,6 +173,7 @@ class ValidationSuite:
             raise ValueError("ValidationSuite needs at least one task")
         self._engines: Dict[str, Any] = dict(engines or {})
         self._stores: Dict[tuple, TokenStore] = {}
+        self._store_order: Dict[tuple, int] = {}
         self.store_builds = 0
         self.subsets: Dict[str, SubsetResult] = {}
         self.sampler_names: Dict[str, str] = {}
@@ -182,6 +190,12 @@ class ValidationSuite:
                 doc_ids=subset.doc_ids,
                 doc_texts=[t.corpus[d] for d in subset.doc_ids],
                 per_query=subset.per_query)
+        if vcfg.token_backing == "mmap":
+            # each distinct store gets its cache-dir index now, in task
+            # order, so the lazy build order never remaps the directories
+            for name, t in self.tasks.items():
+                key = self._store_key(t, self._data[name], self._task_cfg(t))
+                self._store_order.setdefault(key, len(self._store_order))
 
     @property
     def task_names(self) -> Tuple[str, ...]:
@@ -191,19 +205,30 @@ class ValidationSuite:
         return dataclasses.replace(self.vcfg, mode=task.mode,
                                    metrics=tuple(task.metrics), k=task.k)
 
-    def _shared_doc_store(self, task: ValidationTask, data: ValidationStore,
-                          tcfg: ValidationConfig) -> TokenStore:
-        """Tasks whose sampled corpus and chunk geometry match share one
-        padded store."""
+    def _store_key(self, task: ValidationTask, data: ValidationStore,
+                   tcfg: ValidationConfig) -> tuple:
         chunk, _ = chunk_geometry(tcfg, len(data.doc_texts))
         ids = hashlib.sha1("\x00".join(data.doc_ids).encode()).hexdigest()
-        key = (id(task.corpus), ids, chunk, self.spec.p_max_len,
-               tcfg.token_backing)
+        return (id(task.corpus), ids, chunk, self.spec.p_max_len,
+                tcfg.token_backing, tcfg.token_fingerprint)
+
+    def _shared_doc_store(self, task: ValidationTask, data: ValidationStore,
+                          tcfg: ValidationConfig) -> TokenStore:
+        """Tasks whose sampled corpus, chunk geometry and backing match
+        share one padded store (and, for mmap backing, one cache
+        directory)."""
+        key = self._store_key(task, data, tcfg)
         store = self._stores.get(key)
         if store is None:
-            store = TokenStore.build(data.doc_texts,
-                                     max_len=self.spec.p_max_len,
-                                     chunk=chunk, backing=tcfg.token_backing)
+            if tcfg.token_backing == "mmap" and not tcfg.mmap_dir:
+                raise ValueError("token_backing='mmap' needs mmap_dir")
+            index = self._store_order.setdefault(key, len(self._store_order))
+            chunk, _ = chunk_geometry(tcfg, len(data.doc_texts))
+            store = TokenStore.build(
+                data.doc_texts, max_len=self.spec.p_max_len, chunk=chunk,
+                backing=tcfg.token_backing,
+                cache_dir=doc_cache_dir(tcfg.mmap_dir, index),
+                fingerprint=tcfg.token_fingerprint)
             self._stores[key] = store
             self.store_builds += 1
         return store
@@ -252,7 +277,10 @@ class ValidationSuite:
         step, task = int(getattr(unit, "step", 0)), self.tasks[name]
         eng = engine if engine is not None else self.engine(name)
         run, scores, timings = eng.run(params)
-        m = metrics_lib.compute_metrics(run, task.qrels, list(task.metrics))
+        names = list(task.metrics)
+        if task.mode == "average_rank" and "AverageRank" not in names:
+            names.append("AverageRank")
+        m = metrics_lib.compute_metrics(run, task.qrels, names)
         v = self.vcfg
         do_write = v.write_run if write_runs is None else write_runs
         if do_write and v.output_dir:

@@ -122,3 +122,124 @@ def test_flatten_order_matches_jax():
     tleaves = [leaf for _, leaf in ckpt.flatten(tree)]
     assert len(jleaves) == len(tleaves)
     assert all(a is b for a, b in zip(jleaves, tleaves))
+
+
+# ---------------------------------------------------------------------------
+# The reference trainer's checkpoints: params + AdamW state, by key path
+# ---------------------------------------------------------------------------
+
+
+def test_restore_params_of_a_trainer_shaped_checkpoint(tmp_path):
+    """``{"params", "opt_state"}`` as ``repro.train.trainer`` saves it: the
+    port restores the ``params`` subtree bit for bit equal to what
+    ``repro.ckpt.restore`` reads."""
+    from repro.train import optim
+    params = jnn.materialize(jtfm.init(jax.random.PRNGKey(4),
+                                       jcfg_mod.smoke_config()))
+    state = {"params": params, "opt_state": optim.adamw(1e-3).init(params)}
+    root = str(tmp_path / "ckpts")
+    jckpt.save(root, 10, state, extra={"step": 10})
+    n_saved = len(jax.tree_util.tree_leaves(state))
+    cfg = tcfg_mod.smoke_config()
+    template = {"params": ttfm.param_shapes(cfg)}
+    assert n_saved > len(ckpt.flatten(template))
+    got, extra = ckpt.restore(root, 10, template=template)
+    assert extra == {"step": 10}
+    want, _ = jckpt.restore(root, 10)
+    want = dict(ckpt.flatten({"params": want["params"]}))
+    flat = ckpt.flatten(got)
+    assert [p for p, _ in flat] == sorted(want) == [p for p, _ in flat]
+    for path, t in flat:
+        assert t.dtype == torch.float32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(want[path]))
+
+
+_TREES = {
+    "nested_dict": {"b": {"y": 1, "x": {"q": 2}}, "a": 3},
+    "list_tuple_none": {"p": [1, (2, None, [3, 4]), None], "o": (5,)},
+    "empty_nodes": {"e": {}, "l": [], "t": (), "n": None, "v": 7},
+    "leaf": 1,
+    "top_list": [{"a": 1}, [2, 3]],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_TREES))
+def test_treedef_keypaths_equal_jax(name):
+    tree = _TREES[name]
+    proto = jax.tree_util.tree_structure(tree).serialize_using_proto()
+    want = [tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+            for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]]
+    assert ckpt.treedef_keypaths(proto.hex()) == want
+    assert ckpt.treedef_keypaths(proto) == want
+
+
+@pytest.mark.parametrize("node", [b"\x10\x06", b"\x10\x07", b"\x10\x00",
+                                  b"\x08\x01\x10\x09"])
+def test_treedef_unsupported_node_kinds_raise(node):
+    leaf = b"\x0a\x02\x10\x01"                    # one leaf node
+    proto = leaf + b"\x0a" + bytes([len(node)]) + node
+    with pytest.raises(ValueError, match="not supported"):
+        ckpt.treedef_keypaths(proto)
+
+
+def test_treedef_malformed_raises():
+    good = jax.tree_util.tree_structure({"a": [1, 2]}) \
+        .serialize_using_proto()
+    with pytest.raises(ValueError, match="truncated"):
+        ckpt.treedef_keypaths(good[:-1])
+    with pytest.raises(ValueError, match="outside"):
+        ckpt.treedef_keypaths(good[:-3])          # the key's string is gone
+    with pytest.raises(ValueError, match="roots"):
+        ckpt.treedef_keypaths(b"\x0a\x02\x10\x01" * 2)   # two leaves, no root
+
+
+def test_restore_missing_key_path_raises(tmp_path):
+    cfg = tcfg_mod.smoke_config()
+    params = jnn.materialize(jtfm.init(jax.random.PRNGKey(0),
+                                       jcfg_mod.smoke_config()))
+    jckpt.save(str(tmp_path), 3, {"params": params})
+    template = {"params": ttfm.param_shapes(cfg)}
+    with pytest.raises(ValueError, match="key paths"):
+        ckpt.restore(str(tmp_path), 3, template={"model": template["params"]})
+    extra = {"params": dict(template["params"], extra_leaf=(3,))}
+    with pytest.raises(ValueError, match="extra_leaf"):
+        ckpt.restore(str(tmp_path), 3, template=extra)
+
+
+# each case: the steps saved, then gc calls in turn (kwargs; "save" adds a
+# step between calls), as tests/test_ckpt.py and tests/test_control.py
+# drive the reference's gc_checkpoints
+_GC_CASES = {
+    "keep_last_protect": ((1, 2, 3, 4, 5),
+                          [dict(keep_last=2, protect={2})]),
+    "keep_set_then_keep_last": ((1, 2, 3, 4),
+                                [dict(keep={1, 4}, protect={2}),
+                                 dict(keep_last=1)]),
+    "horizon_spares_newer": ((1, 2, 3),
+                             [{"save": 4}, dict(keep={3}, protect={2}),
+                              dict(keep=set())]),
+    "explicit_horizon": ((1, 2, 3, 4, 5),
+                         [dict(keep={2}, horizon=4), dict(keep_last=0)]),
+    "keep_list_with_protect": ((10, 20, 30),
+                               [dict(keep=[30], protect={10})]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GC_CASES))
+def test_gc_checkpoints_matches_reference(tmp_path, case):
+    steps, calls = _GC_CASES[case]
+    roots = {"jax": str(tmp_path / "jax"), "port": str(tmp_path / "port")}
+    tree = {"w": np.zeros((2,), np.float32)}
+    for s in steps:
+        jckpt.save(roots["jax"], s, tree)
+        ckpt.save(roots["port"], s, tree)
+    for call in calls:
+        if "save" in call:
+            jckpt.save(roots["jax"], call["save"], tree)
+            ckpt.save(roots["port"], call["save"], tree)
+            continue
+        want = jckpt.gc_checkpoints(roots["jax"], **call)
+        got = ckpt.gc_checkpoints(roots["port"], **call)
+        assert got == want, call
+        assert ckpt.list_steps(roots["port"]) == \
+            jckpt.list_steps(roots["jax"])

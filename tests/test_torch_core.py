@@ -118,7 +118,8 @@ def test_token_store_and_schedule_match_jax():
         device=torch.device("cpu"), depth=3))
     assert len(staged) == mine.n_chunks
     np.testing.assert_array_equal(staged[-1][0].numpy(), mine.tokens[-1])
-    with pytest.raises(NotImplementedError):
+    # the reference's error: an mmap store needs its cache directory
+    with pytest.raises(ValueError, match="cache_dir"):
         engine.TokenStore.build(texts, max_len=20, chunk=32, backing="mmap")
 
 
@@ -159,7 +160,7 @@ def test_streaming_engine_matches_jax(impl, score_dtype):
 def test_registries_are_the_ports_own():
     registry.ensure_builtins()
     assert registry.IMPLS.names() == ["cuda", "torch"]
-    assert registry.ENGINES.names() == ["streaming"]
+    assert registry.ENGINES.names() == ["materialized", "streaming"]
     with pytest.raises(ValueError, match="did you mean 'torch'"):
         registry.IMPLS.get("torc")
     from repro.core import registry as jregistry

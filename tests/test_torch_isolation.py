@@ -73,3 +73,36 @@ def test_every_module_imports_without_jax_or_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_splitter_main_runs_without_jax_or_repro(tmp_path):
+    """``python -m repro_torch.core.splitter`` end to end (its imports
+    inside ``main`` included) with jax, ml_dtypes and repro blocked."""
+    (tmp_path / "corpus").mkdir()
+    with open(tmp_path / "corpus" / "c.jsonl", "w") as f:
+        for i in range(6):
+            f.write(f'{{"text_id": "d{i}", "text": [1, {i + 2}]}}\n')
+    with open(tmp_path / "run.trec", "w") as f:
+        f.write("q0 Q0 d3 1 2.0 bm25\nq0 Q0 d1 2 1.0 bm25\n")
+    with open(tmp_path / "qrels.txt", "w") as f:
+        f.write("q0 0 d5 1\n")
+    script = (
+        "import runpy, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes',"
+        " 'repro'):\n"
+        "            raise ImportError(name + ' is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "sys.argv = ['splitter', '--candidate_dir', sys.argv[1] + '/corpus',"
+        " '--run_file', sys.argv[1] + '/run.trec', '--qrel_file',"
+        " sys.argv[1] + '/qrels.txt', '--output_dir', sys.argv[1] + '/out',"
+        " '--depth', '1']\n"
+        "runpy.run_module('repro_torch.core.splitter', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    with open(tmp_path / "out" / "subset_top1.jsonl") as f:
+        assert [line.split('"')[3] for line in f] == ["d3", "d5"]

@@ -8,6 +8,12 @@ takes its plain version for CPU tensors).  Both encoders compute in f32
 (the frameworks round bf16 at different places on the CPU; the bf16 default
 is held by tests/test_torch_encoder.py).  The ledgers must have the same
 steps and keys and metrics within 1e-6 at every score dtype.
+
+The round's first done-criterion: a checkpoint directory that the
+reference's ``repro.train.trainer.Trainer`` wrote (params and AdamW state)
+is validated by both CLIs with equal metrics, and the reference's control
+plane replays the port's ledger to the decisions it replays the JAX CLI's
+ledger to.
 """
 
 import dataclasses
@@ -31,6 +37,7 @@ from repro_torch.core.cli import main as torch_main
 from repro_torch.models.biencoder import biencoder_spec as torch_spec
 
 STEPS = (10, 20)
+TRAIN_STEPS = (1, 2, 3)
 
 
 def jax_encoder(args):
@@ -118,8 +125,7 @@ def test_unported_flags_raise(filespace, tmp_path):
     base = _args(filespace, tmp_path, "torch_encoder") + ["--device", "cpu"]
     for extra in (["--serve"], ["--keep_top_k", "2"], ["--worker"],
                   ["--handoff_spool", "x"], ["--obs_report"],
-                  ["--engine", "materialized"], ["--mode", "rerank"],
-                  ["--token_backing", "mmap"], ["--policy", "budget"]):
+                  ["--scan_window", "4"], ["--policy", "budget"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             torch_main(base + extra)
 
@@ -137,3 +143,83 @@ def test_rerun_is_idempotent(filespace, tmp_path):
     assert torch_main(args) == 0
     assert torch_main(args) == 0
     assert [r["step"] for r in _ledger(tmp_path)] == list(STEPS)
+
+
+# ---------------------------------------------------------------------------
+# Done-criterion: the reference trainer's checkpoint directory
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def trained(filespace, tmp_path_factory):
+    """Three checkpoints from ``repro.train.trainer.Trainer`` on the smoke
+    dr-bert (contrastive loss, AdamW), driven on the CPU as
+    tests/test_train.py drives it; then one validation by each CLI."""
+    import numpy as np
+
+    from repro.models import biencoder as jbienc
+    from repro.train import optim
+    from repro.train.trainer import Trainer, TrainerConfig
+    base = tmp_path_factory.mktemp("trained")
+    cfg = jcfg_mod.smoke_config()
+    ds = jcorpus.synthetic_retrieval_dataset(0, n_passages=96, n_queries=12,
+                                             vocab=211, p_len=20, q_len=6)
+    qids = list(ds.qrels)
+
+    def batch_for(step, n=8):
+        rng = np.random.default_rng(step)
+        pick = [qids[i] for i in rng.choice(len(qids), n, replace=False)]
+        q_t, q_m = jcorpus.pad_batch([ds.queries[q] for q in pick], 8)
+        p_t, p_m = jcorpus.pad_batch(
+            [ds.corpus[next(iter(ds.qrels[q]))] for q in pick], 24)
+        return {"q_tokens": q_t, "q_mask": q_m,
+                "p_tokens": p_t[:, None], "p_mask": p_m[:, None]}
+
+    def loss_fn(params, batch):
+        return jbienc.loss_fn(params, cfg, batch)
+
+    params = jnn.materialize(jtfm.init(jax.random.PRNGKey(5), cfg))
+    tr = Trainer(TrainerConfig(total_steps=len(TRAIN_STEPS), ckpt_every=1,
+                               ckpt_dir=str(base / "ckpts"), log_every=1),
+                 loss_fn, optim.adamw(1e-3), params, batch_for)
+    tr.run()
+    ledgers = {}
+    for side, main, encoder, extra in (
+            ("jax", jax_main, "jax_encoder", []),
+            ("port", torch_main, "torch_encoder", ["--device", "cpu"])):
+        out = base / side
+        args = _args(filespace, out, encoder) + extra
+        args[args.index("--ckpts_dir") + 1] = str(base / "ckpts")
+        assert main(args) == 0
+        ledgers[side] = _ledger(out)
+    return {"ckpts": str(base / "ckpts"), "ledgers": ledgers}
+
+
+def test_trainer_checkpoints_validate_alike(trained):
+    """The trainer saved params and optimizer state; both CLIs read the
+    params and agree on every metric within 1e-6."""
+    from repro.ckpt import checkpoint as jckpt
+    state, _ = jckpt.restore(trained["ckpts"], TRAIN_STEPS[0])
+    assert set(state) == {"params", "opt_state"}
+    ref, got = trained["ledgers"]["jax"], trained["ledgers"]["port"]
+    assert [r["step"] for r in ref] == [r["step"] for r in got] \
+        == list(TRAIN_STEPS)
+    for a, b in zip(got, ref):
+        assert set(a) == set(b)
+        assert a["engine"] == b["engine"] and a["task"] == b["task"]
+        assert a["metrics"].keys() == b["metrics"].keys()
+        for name, v in b["metrics"].items():
+            assert a["metrics"][name] == pytest.approx(v, abs=1e-6), name
+
+
+def test_control_plane_replays_port_ledger_alike(trained):
+    """``repro.control.replay_ledger`` fed the port's rows gives the
+    decisions it gives fed the JAX CLI's rows."""
+    from repro.control import ControlConfig
+    from repro.control.plane import replay_ledger
+    cfg = ControlConfig(metric="MRR@10", keep_top_k=2, early_stop=True,
+                        patience=1)
+    want = replay_ledger(trained["ledgers"]["jax"], cfg).events.decisions()
+    got = replay_ledger(trained["ledgers"]["port"], cfg).events.decisions()
+    assert want, "the replay made no decision"
+    assert got == want
