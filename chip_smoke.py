@@ -3,8 +3,11 @@
     python3 chip_smoke.py                # all phases (one card)
     python3 chip_smoke.py --kernels-only # build + the kernel phases only
     python3 chip_smoke.py --trace        # all phases + profiler traces of
-                                         # one validation, one LM forward
-                                         # and one decode_32k decode step
+                                         # one validation, three training
+                                         # steps, one LM forward and one
+                                         # decode_32k decode step
+    python3 chip_smoke.py --train-only   # the kernel phases, then only the
+                                         # train phase (5c) on its data
 
 Phases, each printing one JSON line:
 
@@ -98,6 +101,27 @@ Phases, each printing one JSON line:
                 touching a file; (f) ``fidelity_report`` of the subset
                 ledger against the full-corpus ledger (MRR@10) over the two
                 checkpoints and a third.
+  5c. train   — the trainer and the asynchronous train -> validate loop
+                (paper Fig. 1) on the main phase's data: full-width
+                dr-bert-base, f32, AdamW (warmup to 3e-5, temperature 0.05),
+                16 queries x 2 passages a step, 240 steps, a checkpoint
+                (params + AdamW state) every 80, the validator at
+                ``impl="cuda"`` f32 with telemetry: (a) the first 3 steps on
+                the card and on the CPU at 2 layers, losses within 1e-3
+                relative; (b) async (Fig. 1b: ``validator.start()``,
+                ``trainer.run()``, ``validator.stop(drain=True)``) and (c)
+                sync (Fig. 1a: after each save, ``saver.wait()`` then
+                ``validate_pending()``), both under
+                ``torch.use_deterministic_algorithms``: every saved step
+                ledgered once, the loss falls, topk_mips launched from the
+                validator thread, equal metrics between the modes; step ms
+                alone and with a validation in flight, walls,
+                checkpoint-to-verdict, seconds in ``_save``, MRR@10; (d) the
+                last checkpoint restored through the port leaf for leaf; (e)
+                ``python -m repro_torch.launch.train`` on its smoke config;
+                a ``"phase": "subset", "part": "f", "weights": "trained"``
+                line: fidelity of the splitter's subset on the trained
+                checkpoints.
   6. lm       — full-width qwen2-0.5b (24 layers, random weights from a seed;
                 ``--trace`` also traces one f32 and one bf16 forward):
                 (a) ``lm_loss`` and ``forward`` on 4 x 2048 tokens with
@@ -121,7 +145,8 @@ Phases, each printing one JSON line:
                 layers, batch 16, a 32768-token cache.
 
 Kernel launches are counted only while a path runs (the main path for
-topk_mips, the subset phase's materialized runs for its whole-corpus rows,
+topk_mips, also read over each run of the train phase, the subset phase's
+materialized runs for its whole-corpus rows,
 the LM phase's ``lm_loss`` for flash attention, its ``serve_batch`` calls
 for decode attention: the three timed bf16 calls and the f32 one), with
 every count set to 0 just before it.  Then a
@@ -134,6 +159,7 @@ to ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -141,6 +167,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -788,28 +815,39 @@ def encoder_phase(device):
 # ---------------------------------------------------------------------------
 
 
-def main_phase(device):
-    from repro_torch.ckpt import checkpoint as ckpt
-    from repro_torch.configs import dr_bert_base
-    from repro_torch.core import cli
-    from repro_torch.data import corpus as corpus_lib
-    from repro_torch.models import transformer as tfm
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+N_DOCS, N_QUERIES = 8192, 256
 
-    work = os.path.join(ROOT, "build", "chip_smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(os.path.join(work, "corpus"))
-    cfg = dr_bert_base.full_config()
-    n_docs, chunk, steps = 8192, 1024, (1000, 2000)
+
+def write_dataset():
+    """The main phase's synthetic dataset (8192 passages x 128 tokens, 256
+    queries of 32) as the CLI's files under ``WORK``, made anew."""
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.data import corpus as corpus_lib
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(os.path.join(WORK, "corpus"))
     ds = corpus_lib.synthetic_retrieval_dataset(
-        0, n_passages=n_docs, n_queries=256, vocab=cfg.vocab_size,
-        p_len=128, q_len=32)
-    corpus_lib.write_jsonl(os.path.join(work, "corpus", "c.jsonl"),
+        0, n_passages=N_DOCS, n_queries=N_QUERIES,
+        vocab=dr_bert_base.full_config().vocab_size, p_len=128, q_len=32)
+    corpus_lib.write_jsonl(os.path.join(WORK, "corpus", "c.jsonl"),
                            ds.corpus)
-    corpus_lib.write_jsonl(os.path.join(work, "q.jsonl"), ds.queries)
-    with open(os.path.join(work, "qrels.txt"), "w") as f:
+    corpus_lib.write_jsonl(os.path.join(WORK, "q.jsonl"), ds.queries)
+    with open(os.path.join(WORK, "qrels.txt"), "w") as f:
         for qid, docs in ds.qrels.items():
             for did, g in docs.items():
                 f.write(f"{qid} 0 {did} {g}\n")
+    return ds
+
+
+def main_phase(device, ds):
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.core import cli
+    from repro_torch.models import transformer as tfm
+
+    work = WORK
+    cfg = dr_bert_base.full_config()
+    n_docs, chunk, steps = N_DOCS, 1024, (1000, 2000)
     t0 = time.perf_counter()
     for i, step in enumerate(steps):
         ckpt.save(os.path.join(work, "ckpts"), step,
@@ -864,7 +902,7 @@ def main_phase(device):
             check(abs(v - b["metrics"][name]) <= 1e-6,
                   f"step {a['step']} {name}: cuda {v} vs torch "
                   f"{b['metrics'][name]}")
-    return measured, ds, results
+    return measured, results
 
 
 # ---------------------------------------------------------------------------
@@ -941,40 +979,25 @@ def held(a, b, name):
     return {"lists_differ": differ, "lists": total, "max_metric_diff": diff}
 
 
-def subset_phase(device, ds, main_results):
-    """(a) lexical baseline run + splitter at depth 100, (b) materialized vs
-    streaming at f32 / bf16 / int8, (c) rerank on both engines and two
-    ``--rerank_block`` values, (d) average_rank, (e) an mmap token store
-    and its reuse, (f) fidelity of the subset ledger against the
-    full-corpus ledger.  Returns the materialized runs' topk_mips launches
-    per dtype."""
-    from repro_torch.ckpt import checkpoint as ckpt
-    from repro_torch.configs import dr_bert_base
-    from repro_torch.core import fidelity, splitter
+def lexical_subset(ds):
+    """Subset phase (a): the port's lexical baseline run (top 100, 30% of
+    query tokens dropped) as a TREC run, and the splitter at depth 100;
+    every gold passage must be kept.  Returns (run file, subset dir)."""
+    from repro_torch.core import splitter
     from repro_torch.core.metrics import write_trec_run
     from repro_torch.data import corpus as corpus_lib
-    from repro_torch.kernels.topk_mips import ops
-    from repro_torch.models import transformer as tfm
-    work = os.path.join(ROOT, "build", "chip_smoke")
-    t_phase = time.perf_counter()
-    steps = [r["step"] for r in main_results[("cuda", "f32")]]
-    n_docs, chunk = len(ds.corpus), 1024
-    n_chunks = -(-n_docs // chunk)
-    run_cli = CliRunner(work, steps)
-
-    # (a) the lexical baseline run and the splitter
     t0 = time.perf_counter()
     base = corpus_lib.lexical_baseline_run(ds, k=SUBSET_DEPTH, drop_frac=0.3)
-    run_path = os.path.join(work, "lexical.trec")
+    run_path = os.path.join(WORK, "lexical.trec")
     write_trec_run(run_path, {q: [d for d, _ in v] for q, v in base.items()},
                    {q: [s for _, s in v] for q, v in base.items()},
                    tag="lexical")
     t_base = time.perf_counter() - t0
-    sub_dir = os.path.join(work, "subset")
+    sub_dir = os.path.join(WORK, "subset")
     t0 = time.perf_counter()
-    check(splitter.main(["--candidate_dir", os.path.join(work, "corpus"),
+    check(splitter.main(["--candidate_dir", os.path.join(WORK, "corpus"),
                          "--run_file", run_path,
-                         "--qrel_file", os.path.join(work, "qrels.txt"),
+                         "--qrel_file", os.path.join(WORK, "qrels.txt"),
                          "--output_dir", sub_dir,
                          "--depth", str(SUBSET_DEPTH)]) == 0,
           "splitter failed")
@@ -984,9 +1007,33 @@ def subset_phase(device, ds, main_results):
     golds = {d for q in ds.qrels.values() for d in q}
     check(golds <= set(kept), f"the subset lost {len(golds - set(kept))} "
           "gold passages")
-    emit({"phase": "subset", "part": "a", "passages": n_docs,
+    emit({"phase": "subset", "part": "a", "passages": len(ds.corpus),
           "depth": SUBSET_DEPTH, "subset": len(kept), "golds": len(golds),
           "baseline_s": t_base, "splitter_s": t_split})
+    return run_path, sub_dir
+
+
+def subset_phase(device, ds, main_results):
+    """(a) lexical baseline run + splitter at depth 100, (b) materialized vs
+    streaming at f32 / bf16 / int8, (c) rerank on both engines and two
+    ``--rerank_block`` values, (d) average_rank, (e) an mmap token store
+    and its reuse, (f) fidelity of the subset ledger against the
+    full-corpus ledger.  Returns the materialized runs' topk_mips launches
+    per dtype."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.core import fidelity
+    from repro_torch.kernels.topk_mips import ops
+    from repro_torch.models import transformer as tfm
+    work = WORK
+    t_phase = time.perf_counter()
+    steps = [r["step"] for r in main_results[("cuda", "f32")]]
+    n_docs, chunk = len(ds.corpus), 1024
+    n_chunks = -(-n_docs // chunk)
+    run_cli = CliRunner(work, steps)
+
+    # (a) the lexical baseline run and the splitter
+    run_path, sub_dir = lexical_subset(ds)
 
     # (b) materialized against streaming, both encoding 1024 rows a batch
     lib = ops._lib(device)
@@ -1116,6 +1163,425 @@ def subset_phase(device, ds, main_results):
     emit({"phase": "subset", "ok": True,
           "seconds": time.perf_counter() - t_phase})
     return mat_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the trainer and the asynchronous train -> validate loop
+# ---------------------------------------------------------------------------
+
+# dr-bert-base at full width, f32 compute, AdamW, on the main phase's data:
+# 16 queries x 2 passages a step; a checkpoint every TRAIN_CKPT_EVERY steps.
+# From random weights the post-LN trunk needs a warmup and a temperature
+# below 1 (scores of unit vectors, scaled by 20) to learn in 240 steps.
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH = 240, 80, 16
+TRAIN_PEAK_LR, TRAIN_WARMUP, TRAIN_TEMPERATURE = 3e-5, 20, 0.05
+TRAIN_SEED = 11
+# the first steps on the card against the CPU (2 of the 12 layers): losses
+# within this relative difference
+TRAIN_CPU_STEPS, TRAIN_CPU_TOL = 3, 1e-3
+
+
+def train_loss(spec):
+    from repro_torch.models.biencoder import contrastive_loss
+    return lambda p, b: contrastive_loss(p, spec, b,
+                                         temperature=TRAIN_TEMPERATURE)
+
+
+def train_optimizer():
+    from repro_torch.train import optim
+    return optim.adamw(optim.warmup_cosine(TRAIN_PEAK_LR, TRAIN_WARMUP,
+                                           TRAIN_STEPS))
+
+
+class StepClock:
+    """The trainer's ``on_metrics`` hook at ``log_every=1``: the metrics
+    (converted to floats, so the trainer's stream has been waited for) and
+    the host time of each step, from the end of the previous step's
+    bookkeeping (its callback and its ``_save``) to this step's callback;
+    ``_save`` is wrapped and timed on its own.  ``after_save`` runs right
+    after each save (the inline validation of Fig. 1a) and is not
+    counted."""
+
+    def __init__(self, trainer, after_save=None):
+        self.trainer, self.after_save = trainer, after_save
+        self.steps, self.saves = [], []
+        self._mark = None
+        save = trainer._save
+
+        def timed_save():
+            t0 = time.monotonic()
+            save()
+            self.saves.append((trainer.step, time.monotonic() - t0))
+            if self.after_save is not None:
+                self.after_save(trainer.step)
+            self._mark = time.monotonic()
+
+        trainer._save = timed_save
+
+    def start(self):
+        self._mark = time.monotonic()
+
+    def __call__(self, step, m):
+        self.steps.append({"step": step, "t0": self._mark,
+                           "t1": time.monotonic(), **m})
+        self._mark = time.monotonic()
+
+
+def _validation_spans(trace_path):
+    """Per checkpoint, the host interval from its discovery to the end of
+    its ledger append (restore, scoring and record), and the thread that
+    scored it, from the telemetry trace."""
+    from repro_torch.obs import read_trace
+    recs = read_trace(trace_path)
+    start = {r["step"]: r["t"] for r in recs if r["name"] == "discovered"}
+    out = {}
+    for r in recs:
+        if r["name"] == "recorded":
+            out[r["step"]] = (start.get(r["step"], r["t0"]),
+                              r["t0"] + r["dur"])
+    scored = {r["step"]: r["tid"] for r in recs if r["name"] == "scored"}
+    return out, scored
+
+
+def train_run(device, ds, mode, work):
+    """One run of the loop: ``"async"`` (Fig. 1b: the validator thread
+    starts, the trainer runs, the validator drains) or ``"sync"`` (Fig. 1a:
+    after each save, wait for it and validate inline)."""
+    import dataclasses
+
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.core.suite import (ValidationConfig, ValidationSuite,
+                                        ValidationTask)
+    from repro_torch.core.validator import (CKPT_TO_VERDICT_METRIC,
+                                            AsyncValidator)
+    from repro_torch.launch.train import _contrastive_batches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.biencoder import biencoder_spec
+    from repro_torch.obs import Telemetry
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = dataclasses.replace(dr_bert_base.full_config(),
+                              compute_dtype=torch.float32)
+    spec = biencoder_spec(cfg, q_max_len=32, p_max_len=128, device=device)
+    trace = os.path.join(work, "trace.jsonl")
+    tel = Telemetry(trace, process=mode)
+    vcfg = ValidationConfig(metrics=("MRR@10", "Recall@100"), k=100,
+                            batch_size=256, chunk_size=1024, impl="cuda",
+                            score_dtype="f32", write_run=True,
+                            output_dir=os.path.join(work, "runs"),
+                            telemetry=tel)
+    suite = ValidationSuite(spec, [ValidationTask(
+        "default", ds.corpus, ds.queries, ds.qrels)], vcfg)
+    suite.build_engines()
+    ckdir = os.path.join(work, "ckpts")
+    ledger = os.path.join(work, "ledger.jsonl")
+    validator = AsyncValidator(ckdir, suite, telemetry=tel,
+                               ledger_path=ledger, poll_interval_s=0.05)
+    params = tfm.params_from_numpy(tfm.init_numpy(cfg, TRAIN_SEED), device)
+    trainer = Trainer(
+        TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                      ckpt_dir=ckdir, log_every=1),
+        train_loss(spec), train_optimizer(), params,
+        _contrastive_batches(ds, spec, TRAIN_BATCH), telemetry=tel)
+
+    def inline(step):
+        trainer.saver.wait()
+        validator.validate_pending()
+
+    clock = StepClock(trainer, after_save=inline if mode == "sync" else None)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    clock.start()
+    if mode == "async":
+        validator.start()
+        trainer.run(on_metrics=clock)
+        validator.stop(drain=True)
+    else:
+        trainer.run(on_metrics=clock)
+        validator.validate_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in all_launches().items() if n}
+    tel.flush()
+    check(not validator.errors, f"{mode}: validation errors "
+          f"{list(validator.errors)}")
+    with open(ledger) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    saved = list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1, TRAIN_CKPT_EVERY))
+    check([r["step"] for r in rows] == saved,
+          f"{mode}: ledger steps {[r['step'] for r in rows]}, saved {saved}")
+    for r in rows:
+        check(set(r) == LEDGER_KEYS, f"{mode}: ledger keys {sorted(r)}")
+        check(all(math.isfinite(v) for v in r["metrics"].values()),
+              f"{mode}: metrics {r['metrics']}")
+    hist = tel.metrics.get(CKPT_TO_VERDICT_METRIC)
+    check(hist is not None and hist.count == len(saved),
+          f"{mode}: {hist.count if hist else 0} checkpoint-to-verdict "
+          f"observations for {len(saved)} checkpoints")
+    spans, scored_tid = _validation_spans(trace)
+    alone, busy = [], []
+    train_s = sum(st["t1"] - st["t0"] for st in clock.steps)
+    for st in clock.steps[1:]:              # the first step warms up
+        ms = (st["t1"] - st["t0"]) * 1e3
+        overlap = any(a < st["t1"] and st["t0"] < b
+                      for a, b in spans.values())
+        (busy if overlap else alone).append(ms)
+    losses = [st["loss"] for st in clock.steps]
+    from repro_torch.core.metrics import read_trec_run
+    runs = {step: read_trec_run(os.path.join(
+        work, "runs", f"asyncval_step{step}.trec")) for step in saved}
+    return {"mode": mode, "rows": rows, "runs": runs, "wall_s": wall,
+            "train_s": train_s,
+            "launches": counts, "losses": losses,
+            "first": clock.steps[0], "last": clock.steps[-1],
+            "step_ms_alone": alone, "step_ms_with_validation": busy,
+            "save_s": [t for _, t in clock.saves],
+            "verdict_s": {"p50": hist.percentile(50), "max": hist.vmax},
+            "validation_s": {s: b - a for s, (a, b) in spans.items()},
+            "scored_tids": scored_tid, "trainer": trainer,
+            "ckdir": ckdir}
+
+
+def _summary(run):
+    med = (lambda xs: statistics.median(xs) if xs else None)
+    return {"mode": run["mode"], "wall_s": run["wall_s"],
+            "train_s": run["train_s"], "launches": run["launches"],
+            "step_ms_median_alone": med(run["step_ms_alone"]),
+            "step_ms_median_with_validation":
+                med(run["step_ms_with_validation"]),
+            "steps_alone": len(run["step_ms_alone"]),
+            "steps_with_validation": len(run["step_ms_with_validation"]),
+            "save_s_in_training_thread": run["save_s"],
+            "ckpt_to_verdict_s": run["verdict_s"],
+            "validation_s": run["validation_s"],
+            "total_s_ledger": {r["step"]: r["timings"]["total_s"]
+                               for r in run["rows"]},
+            "first": {k: run["first"][k] for k in
+                      ("step", "loss", "contrastive_acc")},
+            "last": {k: run["last"][k] for k in
+                     ("step", "loss", "contrastive_acc")},
+            "mrr10": {r["step"]: r["metrics"]["MRR@10"]
+                      for r in run["rows"]}}
+
+
+def train_cpu_part(device, ds):
+    """(a) The first steps of the trainer on the card and on the CPU from
+    the same initial params and batches, dr-bert-base cut to 2 layers."""
+    import dataclasses
+
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.launch.train import _contrastive_batches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.biencoder import biencoder_spec
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(dr_bert_base.full_config(), n_layers=2,
+                              compute_dtype=torch.float32)
+    tree = tfm.init_numpy(cfg, TRAIN_SEED)
+    losses = {}
+    for name, where in (("card", device), ("cpu", torch.device("cpu"))):
+        spec = biencoder_spec(cfg, q_max_len=32, p_max_len=128, device=where)
+        tr = Trainer(TrainerConfig(total_steps=TRAIN_CPU_STEPS, log_every=1),
+                     train_loss(spec), train_optimizer(),
+                     tfm.params_from_numpy(tree, where),
+                     _contrastive_batches(ds, spec, TRAIN_BATCH))
+        losses[name] = [m["loss"] for _, m in tr.run()]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"]))
+    check(rel <= TRAIN_CPU_TOL, f"train: card vs CPU losses differ by "
+          f"{rel:.3g} relative ({losses})")
+    emit({"phase": "train", "part": "a", "layers": cfg.n_layers,
+          "losses": losses, "max_rel_diff": rel, "gate": TRAIN_CPU_TOL})
+
+
+def train_phase(device, ds, trace: bool = False):
+    """(a) card vs CPU, (b) the async loop (Fig. 1b), (c) the sync loop
+    (Fig. 1a), both gated, (d) a port checkpoint restored through the port,
+    (e) ``python -m repro_torch.launch.train`` on its smoke config, (f)
+    fidelity of the splitter's subset on the trained checkpoints; with
+    ``trace``, a profile of a few training steps.  The loops run under
+    ``torch.use_deterministic_algorithms`` (with the cuBLAS workspace
+    setting it asks for), so async and sync must give equal metrics."""
+    from repro_torch.core import pytree
+    t_phase = time.perf_counter()
+    train_cpu_part(device, ds)
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    # nothing reads memory it did not write; the fill would only add
+    # memsets, and a 1.3 GB pinned buffer fill per save on the host
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        runs = {mode: train_run(device, ds, mode,
+                                os.path.join(WORK, f"train_{mode}"))
+                for mode in ("async", "sync")}
+        if trace:
+            train_trace(device, ds, "train_3_steps_deterministic")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+    a, s = runs["async"], runs["sync"]
+    main_tid = threading.get_ident()
+    on_thread = sum(tid != main_tid for tid in a["scored_tids"].values())
+    lists = sum(1 for step, run in a["runs"].items()
+                for qid, ranked in run.items()
+                if ranked != s["runs"][step][qid])
+    diff = max(abs(v - rs["metrics"][m]) for ra, rs in zip(a["rows"],
+                                                           s["rows"])
+               for m, v in ra["metrics"].items())
+    params_equal = all(torch.equal(x, y) for x, y in zip(
+        pytree.tree_leaves(a["trainer"].params),
+        pytree.tree_leaves(s["trainer"].params)))
+    for part, run in (("b", a), ("c", s)):
+        emit({"phase": "train", "part": part, **_summary(run),
+              "validator_thread_scored": on_thread if run is a else None})
+    emit({"phase": "train", "part": "async_vs_sync",
+          "deterministic_algorithms": True, "max_metric_diff": diff,
+          "lists_differ": lists,
+          "lists": sum(len(r) for r in a["runs"].values()),
+          "final_params_equal": params_equal,
+          "wall_s": {"async": a["wall_s"], "sync": s["wall_s"]}})
+    check(a["launches"].get("topk_mips_f32", 0) > 0 and on_thread > 0,
+          f"async: topk_mips launches {a['launches']}, {on_thread} "
+          "checkpoints scored on the validator thread")
+    for run in (a, s):
+        first, last = run["losses"][:10], run["losses"][-10:]
+        check(sum(last) < sum(first), f"{run['mode']}: the loss did not "
+              f"fall ({sum(first) / 10:.4f} -> {sum(last) / 10:.4f})")
+    check(diff == 0.0, f"async vs sync: metrics differ by {diff:.3g} "
+          "under deterministic algorithms")
+    restore_part(a)
+    launch_part()
+    fidelity_part(device, ds, a)
+    if trace:
+        train_trace(device, ds, "train_3_steps")
+    emit({"phase": "train", "ok": True,
+          "seconds": time.perf_counter() - t_phase})
+    for run in runs.values():
+        shutil.rmtree(run["ckdir"], ignore_errors=True)
+    # the trainers' states sit in reference cycles (the timed _save); free
+    # them and their cached blocks before the LM phase's large allocations
+    del runs, a, s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def restore_part(run):
+    """(d) The async run's last checkpoint restored through the port's
+    reader: params and AdamW state, every leaf equal to the trainer's."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core import pytree
+    tr = run["trainer"]
+    state = {"params": tr.params, "opt_state": tr.opt_state}
+    got, extra = ckpt.restore(run["ckdir"], TRAIN_STEPS,
+                              template=pytree.tree_map(
+                                  lambda t: tuple(t.shape), state))
+    want = pytree.tree_leaves(state)
+    have = pytree.tree_leaves(got)
+    check(len(want) == len(have) and all(
+        torch.equal(x.cpu(), y) for x, y in zip(want, have)),
+        "restored checkpoint differs from the trainer's state")
+    with open(os.path.join(ckpt._step_dir(run["ckdir"], TRAIN_STEPS),
+                           "manifest.json")) as f:
+        manifest = json.load(f)
+    check(bool(manifest["treedef"]) and extra["step"] == TRAIN_STEPS,
+          "port checkpoint lacks its treedef or step")
+    emit({"phase": "train", "part": "d", "step": TRAIN_STEPS,
+          "leaves": len(have), "equal": True,
+          "bytes": sum(t.numel() * t.element_size() for t in have)})
+
+
+def launch_part():
+    """(e) ``python -m repro_torch.launch.train`` (smoke config, the
+    reference's defaults but 20 steps) on the card."""
+    work = os.path.join(WORK, "train_launch")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--workdir", work,
+         "--steps", "20", "--ckpt-every", "5"],
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"launch.train failed: {proc.stderr[-2000:]}")
+    with open(os.path.join(work, "summary.json")) as f:
+        summary = json.load(f)
+    check(summary["validated_steps"] == [5, 10, 15, 20]
+          and not summary["errors"] and summary["mode"] == "async",
+          f"launch.train: {summary}")
+    emit({"phase": "train", "part": "e", "entry": "repro_torch.launch.train",
+          "validated_steps": summary["validated_steps"],
+          "wall_time_s": summary["wall_time_s"], "seconds": seconds,
+          "metrics": summary["metrics"]})
+
+
+def fidelity_part(device, ds, run):
+    """(f) The splitter's subset (subset phase a) against the full corpus
+    on the trained checkpoints of the async run: MRR@10 from the same
+    validator config, Pearson and Kendall."""
+    import dataclasses
+
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.core import fidelity
+    from repro_torch.core.suite import (ValidationConfig, ValidationSuite,
+                                        ValidationTask)
+    from repro_torch.core.validator import AsyncValidator
+    from repro_torch.data import corpus as corpus_lib
+    from repro_torch.models.biencoder import biencoder_spec
+    cfg = dataclasses.replace(dr_bert_base.full_config(),
+                              compute_dtype=torch.float32)
+    spec = biencoder_spec(cfg, q_max_len=32, p_max_len=128, device=device)
+    kept = corpus_lib.read_jsonl(os.path.join(
+        WORK, "subset", f"subset_top{SUBSET_DEPTH}.jsonl"))
+    vcfg = ValidationConfig(metrics=("MRR@10", "Recall@100"), k=100,
+                            batch_size=256, chunk_size=1024, impl="cuda",
+                            score_dtype="f32")
+    suite = ValidationSuite(spec, [ValidationTask(
+        "default", kept, ds.queries, ds.qrels)], vcfg)
+    validator = AsyncValidator(run["ckdir"], suite)
+    validator.validate_pending()
+    check(not validator.errors, f"fidelity: {list(validator.errors)}")
+    steps = [r["step"] for r in run["rows"]]
+    full = [r["metrics"]["MRR@10"] for r in run["rows"]]
+    sub = {r.step: r.metrics["MRR@10"] for r in validator.results}
+    est = [sub[s] for s in steps]
+    report = fidelity.fidelity_report(full, est)
+    emit({"phase": "subset", "part": "f", "weights": "trained",
+          "metric": "MRR@10", "steps": steps, "full": full, "subset": est,
+          "subset_size": len(kept), "report": report})
+
+
+def train_trace(device, ds, name):
+    """Three training steps at the phase's shapes under the profiler."""
+    import dataclasses
+
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.launch.train import _contrastive_batches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.biencoder import biencoder_spec
+    from repro_torch.train.trainer import make_train_step
+    cfg = dataclasses.replace(dr_bert_base.full_config(),
+                              compute_dtype=torch.float32)
+    spec = biencoder_spec(cfg, q_max_len=32, p_max_len=128, device=device)
+    opt = train_optimizer()
+    step = make_train_step(train_loss(spec), opt)
+    batches = _contrastive_batches(ds, spec, TRAIN_BATCH)
+    state = [tfm.params_from_numpy(tfm.init_numpy(cfg, TRAIN_SEED), device)]
+    state.append(opt.init(state[0]))
+    state[0], state[1], _ = step(state[0], state[1], batches(0))   # warm
+
+    def three():
+        for i in range(3):
+            state[0], state[1], m = step(state[0], state[1], batches(1 + i))
+        float(m["loss"])
+
+    emit(traced(name, three, ("gemm", "nvjet", "xmma")))
 
 
 # ---------------------------------------------------------------------------
@@ -1854,12 +2320,18 @@ def main(argv=None) -> int:
     whole_launches = {dt: None for dt in whole_rows}
     flash_launches = {dt: None for dt in flash_rows}
     decode_launches = {dt: None for dt in decode_rows}
-    if "--kernels-only" not in argv:
+    if "--train-only" in argv:
+        ds = write_dataset()
+        lexical_subset(ds)
+        train_phase(device, ds, trace="--trace" in argv)
+    elif "--kernels-only" not in argv:
         encoder_phase(device)
-        launches, ds, main_results = main_phase(device)
+        ds = write_dataset()
+        launches, main_results = main_phase(device, ds)
         whole_launches = subset_phase(device, ds, main_results)
         if "--trace" in argv:
             trace_phase()
+        train_phase(device, ds, trace="--trace" in argv)
         lm_launches = lm_phase(device, trace="--trace" in argv)
         flash_launches = {dt: lm_launches[dt] for dt in flash_rows}
         decode_launches = {dt: lm_launches[f"decode_{dt}"]

@@ -23,8 +23,17 @@ package writes them through ``ml_dtypes``).  They are viewed as ``uint16``
 and then as ``torch.bfloat16``, so no ``ml_dtypes`` is needed.  Leaves are
 returned as CPU tensors.
 
-A checkpoint written by :func:`save` here stores ``"treedef": null`` and the
-leaves' key paths; ``repro.ckpt.restore`` of the JAX package cannot read it.
+:func:`save` writes the same format: the manifest's ``treedef`` is encoded
+in pure Python (:func:`treedef_proto`, byte for byte what
+``serialize_using_proto()`` gives for dict, list, tuple and None nodes), so
+``repro.ckpt.restore`` of the JAX package reads a port checkpoint, and the
+manifest also lists each leaf's key path (``"keypaths"``), which the
+reference's reader ignores.
+
+:class:`AsyncSaver` saves in the background: the calling thread only
+enqueues the device-to-host copies (pinned host buffers, ``non_blocking``
+copies on a side stream, one CUDA event); a background thread waits on the
+event and writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -32,10 +41,14 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
+import threading
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, \
+    Union
 
 import numpy as np
 import torch
+
+from repro_torch.core import pytree
 
 COMMIT_MARKER = "COMMIT"
 STEP_PREFIX = "step_"
@@ -54,8 +67,10 @@ def _fsync_dir(path: str) -> None:
 
 
 def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """``[(key path, leaf), ...]`` in ``jax.tree_util.tree_flatten`` order
-    (sorted dict keys at every level)."""
+    """``[(key path, leaf), ...]`` of a nested dict in ``jax.tree_util.
+    tree_flatten`` order (sorted dict keys at every level); anything that
+    is not a dict is a leaf, so a restore template's shape tuples are
+    leaves here."""
     if isinstance(tree, dict):
         out: List[Tuple[str, Any]] = []
         for key in sorted(tree):
@@ -194,6 +209,70 @@ def treedef_keypaths(treedef: Union[str, bytes]) -> List[KeyPath]:
     return out
 
 
+def _varint_bytes(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _field(field: int, payload: Union[int, bytes]) -> bytes:
+    """One protobuf field: a varint for an int, length-delimited bytes
+    otherwise."""
+    if isinstance(payload, int):
+        return _varint_bytes(field << 3) + _varint_bytes(payload)
+    return _varint_bytes(field << 3 | 2) + _varint_bytes(len(payload)) \
+        + payload
+
+
+def treedef_proto(tree: Any) -> bytes:
+    """The inverse of :func:`treedef_keypaths`: ``tree``'s structure as
+    ``jax.tree_util.tree_structure(tree).serialize_using_proto()`` gives
+    it.  Nodes in post-order, each with its arity (left out when 0), its
+    kind and, for a dict, the ids of its keys in sorted order; a key string
+    is interned when the first dict holding it is written.  Dict keys must
+    be strings; node kinds other than dict, list, tuple and None raise."""
+    nodes: List[bytes] = []
+    strings: Dict[str, int] = {}
+
+    def node(arity: int, kind: int, key_ids: Optional[List[int]] = None):
+        msg = (_field(1, arity) if arity else b"") + _field(2, kind)
+        if key_ids:
+            packed = b"".join(_varint_bytes(i) for i in key_ids)
+            msg += _field(3, _field(1, packed))
+        nodes.append(msg)
+
+    def walk(x):
+        kind = pytree._kind(x)
+        if kind == "dict":
+            keys = sorted(x)
+            bad = [k for k in keys if not isinstance(k, str)]
+            if bad:
+                raise ValueError(f"treedef: dict keys must be strings, got "
+                                 f"{bad[:3]}")
+            for key in keys:
+                walk(x[key])
+            node(len(keys), _DICT,
+                 [strings.setdefault(k, len(strings)) for k in keys])
+        elif kind in ("list", "tuple"):
+            for child in x:
+                walk(child)
+            node(len(x), _LIST if kind == "list" else _TUPLE)
+        elif kind == "none":
+            node(0, _NONE)
+        else:
+            node(0, _LEAF)
+
+    walk(tree)
+    return b"".join(_field(1, n) for n in nodes) \
+        + b"".join(_field(2, s.encode("utf-8")) for s in strings)
+
+
 def _path_name(keypath: KeyPath) -> str:
     """A key path in :func:`flatten`'s ``a/b/c`` form."""
     return "/".join(str(k) for k in keypath)
@@ -231,10 +310,10 @@ def save(root: str, step: int, tree: Any, extra: Optional[dict] = None) -> str:
         shutil.rmtree(tmp)
     arrays_dir = os.path.join(tmp, "arrays")
     os.makedirs(arrays_dir)
-    flat = flatten(tree)
-    manifest = {"step": step, "treedef": None,
-                "keypaths": [path for path, _ in flat], "leaves": [],
-                "extra": extra or {}}
+    flat = pytree.tree_flatten_with_path(tree)
+    manifest = {"step": step, "treedef": treedef_proto(tree).hex(),
+                "keypaths": [_path_name(path) for path, _ in flat],
+                "leaves": [], "extra": extra or {}}
     for i, (_, leaf) in enumerate(flat):
         arr, dtype = _to_numpy(leaf)
         with open(os.path.join(arrays_dir, f"{i:05d}.npy"), "wb") as f:
@@ -260,6 +339,109 @@ def save(root: str, step: int, tree: Any, extra: Optional[dict] = None) -> str:
     except FileNotFoundError:
         pass    # a consumer validated and evicted it already; nothing to sync
     return final
+
+
+def _start_host_copy(tree: Any) -> Tuple[Any, Optional[torch.cuda.Event]]:
+    """Enqueue the device-to-host copy of every CUDA leaf of ``tree`` and
+    return ``(host tree, event)`` without waiting for any of them.
+
+    Each CUDA leaf is copied into a pinned host tensor by a ``non_blocking``
+    copy on a side stream that first waits for the work already queued on
+    the caller's stream (the step that produced the leaf); one event,
+    recorded after the last copy, tells the reader when the host tree is
+    whole (``None`` when no leaf is on a card).  ``record_stream`` keeps the
+    caching allocator from handing a leaf's memory to later work before the
+    copy has read it, so the caller may drop or rebind its tensors at once;
+    an in-place write to a leaf before the event would still race the
+    copy, which is why the trainer's optimizer returns new tensors."""
+    leaves, treedef = pytree.tree_flatten(tree)
+    devices = {leaf.device for leaf in leaves
+               if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
+    if len(devices) > 1:
+        raise ValueError(f"a checkpoint tree on several cards: {devices}")
+    if not devices:
+        return tree, None
+    device = devices.pop()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    host = []
+    with torch.cuda.stream(side):
+        for leaf in leaves:
+            if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                h = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                pin_memory=True)
+                h.copy_(leaf.detach(), non_blocking=True)
+                leaf.record_stream(side)
+                host.append(h)
+            else:
+                host.append(leaf)
+        done = torch.cuda.Event()
+        done.record(side)
+    return treedef.unflatten(host), done
+
+
+class AsyncSaver:
+    """Background checkpoint writer: training waits neither on the disk nor
+    on the device-to-host copy.
+
+    One save in flight at a time (a new ``save`` waits for the previous one,
+    so the trainer waits only if it outruns the disk).  The calling thread
+    only enqueues the copies (:func:`_start_host_copy`); the background
+    thread waits on their event, then writes with :func:`save`.
+
+    Hooks (optional, called on the background thread): ``on_host_copy(step,
+    host_tree)`` once the host copy is whole, before the durable write;
+    ``on_durable(step)`` after the two-phase commit; ``on_failure(step,
+    exc)`` if the write raises.  An error is raised again by the next
+    :meth:`wait` (or ``save``)."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, root: str, step: int, tree: Any,
+             extra: Optional[dict] = None, *,
+             on_host_copy: Optional[Callable] = None,
+             on_durable: Optional[Callable] = None,
+             on_failure: Optional[Callable] = None) -> None:
+        self.wait()
+        host_tree, done = _start_host_copy(tree)
+
+        def _run():
+            try:
+                if done is not None:
+                    done.synchronize()
+                if on_host_copy is not None:
+                    try:
+                        on_host_copy(step, host_tree)
+                    except BaseException as e:
+                        # a failed hand-off must not cost the checkpoint
+                        self._error = e
+                save(root, step, host_tree, extra)
+            except BaseException as e:   # raised again by the next wait()
+                self._error = e
+                if on_failure is not None:
+                    try:
+                        on_failure(step, e)
+                    except BaseException:
+                        pass             # the save's error takes precedence
+                return
+            if on_durable is not None:
+                try:
+                    on_durable(step)
+                except BaseException as e:
+                    self._error = e
+
+        self._thread = threading.Thread(target=_run, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def is_committed(path: str) -> bool:
@@ -306,13 +488,15 @@ def _load_leaf(path: str, meta: dict) -> torch.Tensor:
         if arr.dtype.itemsize != 2:
             raise ValueError(f"{path}: manifest says bfloat16, file holds "
                              f"{arr.dtype}")
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        # np.require keeps a 0-d leaf 0-d (ascontiguousarray makes it 1-d)
+        t = torch.from_numpy(
+            np.require(arr, requirements="C").view(np.int16))
         t = t.view(torch.bfloat16)
     else:
         if str(arr.dtype) != want:
             raise ValueError(f"{path}: manifest says {want}, file holds "
                              f"{arr.dtype}")
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.require(arr, requirements="C"))
     if list(t.shape) != list(meta["shape"]):
         raise ValueError(f"{path}: manifest shape {meta['shape']}, file "
                          f"holds {list(t.shape)}")

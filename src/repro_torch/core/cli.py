@@ -20,8 +20,9 @@ reference.  Flags of parts not yet ported raise ``NotImplementedError``:
 serving (``--serve*``), the control plane (``--keep_top_k``, ``--ema``,
 ``--early_stop*``, ``--stop_file``, ``--ensemble_top_k``), the fleet
 (``--worker``, ``--worker_id``, ``--capabilities``, ``--lease_ttl``,
-``--max_abandons``), hand-off (``--handoff_spool``), telemetry
-(``--obs_*``), ``--scan_window`` and ``--policy budget``.
+``--max_abandons``), hand-off (``--handoff_spool``) and ``--scan_window``.
+``--policy budget`` and the telemetry flags (``--obs_trace``,
+``--obs_report``, ``--obs_metrics``) work as in the reference.
 """
 
 from __future__ import annotations
@@ -49,11 +50,8 @@ _NOT_PORTED = {
     "stop_file": None, "ensemble_top_k": None,
     "worker": False, "worker_id": None, "capabilities": None,
     "lease_ttl": None, "max_abandons": None, "handoff_spool": None,
-    "obs_trace": None, "obs_report": False, "obs_metrics": None,
     "scan_window": None,
 }
-#: (flag, value) pairs of ported flags whose value selects an unported part
-_NOT_PORTED_VALUES = {("policy", "budget")}
 
 
 @register_encoder("arch")
@@ -87,6 +85,28 @@ def load_texts(paths):
     for p in paths:
         out.update(read_jsonl(p))
     return out
+
+
+def _obs_finish(args, tel) -> None:
+    """Flush the trace buffer and write the ``--obs_report`` /
+    ``--obs_metrics`` outputs: the registry's summary table and the
+    checkpoint-to-verdict latency percentiles."""
+    if tel is None:
+        return
+    tel.flush()
+    if args.obs_metrics:
+        tel.metrics.dump(args.obs_metrics)
+    if args.obs_report:
+        from repro_torch.core.validator import CKPT_TO_VERDICT_METRIC
+        print(tel.metrics.render())
+        hist = tel.metrics.get(CKPT_TO_VERDICT_METRIC)
+        if hist is not None and hist.count:
+            print(f"[obs] checkpoint-to-verdict: "
+                  f"p50={hist.percentile(50):.3f}s "
+                  f"p99={hist.percentile(99):.3f}s "
+                  f"over {hist.count} verdicts")
+        else:
+            print("[obs] checkpoint-to-verdict: no verdicts observed")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -169,8 +189,22 @@ def _parser() -> argparse.ArgumentParser:
                     help="keep polling for new checkpoints (async mode)")
     ap.add_argument("--poll_interval", type=float, default=5.0)
     ap.add_argument("--policy", default="fifo",
-                    choices=["fifo", "latest_first", "stride", "budget"])
+                    choices=["fifo", "latest_first", "stride", "budget"],
+                    help="checkpoint scheduling: every checkpoint in order "
+                         "(fifo), only the newest (latest_first), every "
+                         "--stride-th step (stride), or a stride adapted "
+                         "from validation latency vs checkpoint cadence "
+                         "(budget)")
     ap.add_argument("--stride", type=int, default=1)
+    ap.add_argument("--obs_trace", default=None,
+                    help="append lifecycle spans/events to this JSONL trace "
+                         "file (export with python -m "
+                         "repro_torch.obs.export)")
+    ap.add_argument("--obs_report", action="store_true",
+                    help="print the metrics-registry summary table at exit")
+    ap.add_argument("--obs_metrics", default=None,
+                    help="dump the metrics-registry snapshot as JSON to "
+                         "this path at exit")
     for name, unused in _NOT_PORTED.items():
         if unused is False:
             ap.add_argument(f"--{name}", action="store_true",
@@ -187,10 +221,6 @@ def main(argv=None) -> int:
         if getattr(args, name) != unused:
             raise NotImplementedError(f"--{name} is not yet ported to "
                                       "repro_torch")
-    for name, value in _NOT_PORTED_VALUES:
-        if getattr(args, name) == value:
-            raise NotImplementedError(f"--{name} {value} is not yet ported "
-                                      "to repro_torch")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) but no CUDA device "
                            "is visible; pass --device cpu to run on the CPU")
@@ -223,7 +253,7 @@ def main(argv=None) -> int:
     from repro_torch.core.suite import (ValidationConfig, ValidationSuite,
                                         ValidationTask)
     from repro_torch.core.validator import AsyncValidator
-    from repro_torch.core.watcher import Policy
+    from repro_torch.core.watcher import BudgetPolicy, Policy
 
     spec = build_encoder(args)
     corpus = load_texts(sorted(
@@ -234,6 +264,14 @@ def main(argv=None) -> int:
           f"qrels={len(qrels)} device={spec.device}", file=sys.stderr)
     baseline_run = read_trec_run(args.run_file) if args.run_file else None
     sampler = SAMPLERS.get(chosen_sampler)(depth=args.depth)
+
+    # telemetry observes only: without an --obs_* flag no clock is read
+    # for it and nothing is written
+    tel = None
+    if args.obs_trace or args.obs_report or args.obs_metrics:
+        from repro_torch.obs import Telemetry
+        tel = Telemetry(args.obs_trace, process="cli",
+                        attrs={"run": args.run_name})
 
     mmap_dir = args.mmap_dir
     if args.token_backing == "mmap" and not mmap_dir:
@@ -250,7 +288,7 @@ def main(argv=None) -> int:
                             score_dtype=args.score_dtype,
                             write_run=args.write_run,
                             output_dir=args.output_dir,
-                            run_tag=args.run_name)
+                            run_tag=args.run_name, telemetry=tel)
     suite = ValidationSuite(spec, [
         ValidationTask("default", corpus, queries, qrels,
                        sampler=sampler, baseline_run=baseline_run),
@@ -269,10 +307,11 @@ def main(argv=None) -> int:
     os.makedirs(logdir, exist_ok=True)
     validator = AsyncValidator(
         args.ckpts_dir, suite, logger=MultiLogger(*loggers),
-        policy=Policy(kind=args.policy, stride=args.stride),
+        policy=BudgetPolicy() if args.policy == "budget"
+        else Policy(kind=args.policy, stride=args.stride),
         max_num_valid=args.max_num_valid,
         ledger_path=os.path.join(logdir, f"{args.run_name}_ledger.jsonl"),
-        poll_interval_s=args.poll_interval)
+        poll_interval_s=args.poll_interval, telemetry=tel)
 
     if args.watch:
         print("[asyncval] watching", args.ckpts_dir, file=sys.stderr)
@@ -293,6 +332,7 @@ def main(argv=None) -> int:
                   f"({r.timings['total_s']:.1f}s)")
     for step, err in validator.errors:
         print(f"[asyncval] step {step} failed: {err}", file=sys.stderr)
+    _obs_finish(args, tel)
     return 0 if not validator.errors else 1
 
 

@@ -24,8 +24,12 @@ The port of ``repro/core/engine.py``:
      retrieve_run`: the topk_mips kernels over the whole corpus under
      ``cuda``) or reranks (:func:`~repro_torch.core.retrieval.rerank_run`).
 
-The sharded stages, the scan-window dispatch and telemetry wait for later
-slices of the port.
+With a :class:`repro_torch.obs.Telemetry` on the suite's config the
+engines record the reference's ``encoded`` / ``staged`` / ``store_build``
+spans and the ``engine.*`` histograms, read at the clock points of the
+ledger ``timings`` (after the same stream synchronisations); without one
+they take no extra clock reads.  The sharded stages and the scan-window
+dispatch wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -58,10 +62,14 @@ Scores = Dict[str, List[float]]
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (no-op on the CPU), so host clocks
-    around it measure the work and not its enqueueing."""
+    """Wait for the work queued on the calling thread's current stream of
+    ``device`` (no-op on the CPU), so host clocks around it measure that
+    work and not its enqueueing.  The staging copies are covered, since the
+    current stream waits on each staged batch's copy event before it uses
+    the batch (:func:`staged_batches`).  Other streams of the card (a
+    trainer's, on the same card) are not waited for."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -405,11 +413,13 @@ def staged_batches(store: TokenStore, schedule: Sequence[Tuple[int, int]], *,
     copies issued ``depth`` batches ahead of the consumer.
 
     On a CUDA device each batch is copied from pinned host memory with a
-    ``non_blocking`` copy on a side stream; the consumer's stream waits on
-    that copy's event, and ``record_stream`` keeps the allocator from
-    reusing the buffer before the consumer is done.  ``depth=1`` stages
-    each batch just before it is used.  With an mmap-backed store only the
-    staged chunks are ever read into host memory."""
+    ``non_blocking`` copy on a side stream; the consumer's stream (the
+    current stream of the thread that iterates, e.g. a validator thread's
+    own stream) waits on that copy's event, and ``record_stream`` keeps the
+    allocator from reusing the buffer before the consumer is done.
+    ``depth=1`` stages each batch just before it is used.  With an
+    mmap-backed store only the staged chunks are ever read into host
+    memory."""
     depth = max(1, depth)
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -739,7 +749,7 @@ class StreamingEngine:
 
     def __init__(self, spec, doc_store: TokenStore, query_store: TokenStore,
                  stage: Stage, *, staging: str = "double_buffered",
-                 staging_depth: int = 2):
+                 staging_depth: int = 2, telemetry=None):
         if staging not in ("double_buffered", "sync"):
             raise ValueError(f"unknown staging {staging!r} "
                              "(expected 'double_buffered' or 'sync')")
@@ -752,6 +762,8 @@ class StreamingEngine:
         self.stage = stage
         self.staging = staging
         self.staging_depth = staging_depth
+        # nullable repro_torch.obs.Telemetry: observation only
+        self.telemetry = telemetry
 
     @property
     def score_dtype(self) -> str:
@@ -759,13 +771,17 @@ class StreamingEngine:
 
     @torch.inference_mode()
     def run(self, params) -> Tuple[Run, Scores, Dict[str, float]]:
+        tel = self.telemetry
         device = self.spec.device
         params = to_torch_tree(params, device)
         t0 = time.time()
+        m0 = time.monotonic() if tel is not None else 0.0
         q_emb = encode_store(self.spec.encode_query, params, self.query_store,
                              device=device)
         synchronize(device)
         t_query = time.time() - t0
+        if tel is not None:
+            tel.record("encoded", m0, t_query, role="query")
 
         t0 = time.time()
         # a compacting rerank stage streams its own packed store
@@ -779,11 +795,37 @@ class StreamingEngine:
         batches = staged_batches(
             store, schedule, device=device,
             depth=1 if self.staging == "sync" else self.staging_depth)
-        for (ci, _), (toks, mask) in zip(schedule, batches):
+        # explicit next() so telemetry can time the staging (host time to
+        # take the next staged batch) apart from the step's dispatch; on a
+        # card both are host times, the device work is in t_stream
+        m_stream = time.monotonic() if tel is not None else 0.0
+        t_wait = 0.0
+        step_hist = tel.metrics.histogram("engine.chunk_step_s") \
+            if tel is not None else None
+        for ci, _ in schedule:
+            if tel is None:
+                toks, mask = next(batches)
+            else:
+                m0 = time.monotonic()
+                toks, mask = next(batches)
+                t_wait += time.monotonic() - m0
+                m1 = time.monotonic()
             carry = self.stage.step(params, q_emb, carry, toks, mask,
                                     store.chunk * ci, store.rows_valid(ci))
+            if tel is not None:
+                step_hist.observe(time.monotonic() - m1)
         synchronize(device)
         t_stream = time.time() - t0
+        if tel is not None:
+            stream_total = max(time.monotonic() - m_stream, 1e-12)
+            idle_ratio = t_wait / stream_total
+            # one aggregate span per run: its duration is the summed waits,
+            # not a contiguous interval
+            tel.record("staged", m_stream, t_wait, n_batches=len(schedule),
+                       staging=self.staging, idle_ratio=idle_ratio)
+            tel.metrics.histogram("engine.staging_wait_s").observe(t_wait)
+            tel.metrics.histogram("engine.staging_idle_ratio").observe(
+                idle_ratio)
 
         t0 = time.time()
         run, scores = self.stage.finalize(carry)
@@ -814,7 +856,8 @@ class MaterializedEngine:
                  query_ids: List[str], doc_ids: List[str],
                  per_query: Optional[Dict[str, List[str]]] = None,
                  rerank_block: Optional[int] = None,
-                 score_dtype: str = "f32"):
+                 score_dtype: str = "f32", telemetry=None):
+        self.telemetry = telemetry
         self.spec = spec
         self.doc_texts = doc_texts
         self.query_texts = query_texts
@@ -832,9 +875,11 @@ class MaterializedEngine:
 
     @torch.inference_mode()
     def run(self, params) -> Tuple[Run, Scores, Dict[str, float]]:
+        tel = self.telemetry
         device = self.spec.device
         params = to_torch_tree(params, device)
         t0 = time.time()
+        m0 = time.monotonic() if tel is not None else 0.0
         c_emb, _ = encode_tensor(self.spec.encode_passage, params,
                                  self.doc_texts, max_len=self.spec.p_max_len,
                                  batch_size=self.batch_size, device=device)
@@ -842,12 +887,17 @@ class MaterializedEngine:
             c_emb = c_emb.to(torch.bfloat16)
         synchronize(device)
         t_corpus = time.time() - t0
+        if tel is not None:
+            tel.record("encoded", m0, t_corpus, role="corpus")
         t0 = time.time()
+        m0 = time.monotonic() if tel is not None else 0.0
         q_emb, _ = encode_tensor(self.spec.encode_query, params,
                                  self.query_texts, max_len=self.spec.q_max_len,
                                  batch_size=self.batch_size, device=device)
         synchronize(device)
         t_query = time.time() - t0
+        if tel is not None:
+            tel.record("encoded", m0, t_query, role="query")
 
         t0 = time.time()
         if self.mode in ("rerank", "average_rank") and self.per_query:
@@ -905,15 +955,22 @@ def doc_cache_dir(mmap_dir: Optional[str], index: int = 0) -> Optional[str]:
 def make_streaming_engine(spec, store: ValidationStore, vcfg):
     """The default encode->fold data path (see module docstring)."""
     chunk, q_chunk = chunk_geometry(vcfg, len(store.doc_texts))
+    tel = vcfg.telemetry
     doc_store = store.doc_store
     if doc_store is None:
         if vcfg.token_backing == "mmap" and not vcfg.mmap_dir:
             raise ValueError("token_backing='mmap' needs mmap_dir")
+        if tel is not None:
+            t0 = time.monotonic()
         doc_store = TokenStore.build(
             store.doc_texts, max_len=spec.p_max_len, chunk=chunk,
             backing=vcfg.token_backing,
             cache_dir=doc_cache_dir(vcfg.mmap_dir),
             fingerprint=vcfg.token_fingerprint)
+        if tel is not None:
+            tel.record("store_build", t0, time.monotonic() - t0,
+                       n_docs=len(store.doc_texts),
+                       backing=vcfg.token_backing)
     query_store = store.query_store
     if query_store is None:
         query_store = TokenStore.build(store.query_texts,
@@ -925,7 +982,7 @@ def make_streaming_engine(spec, store: ValidationStore, vcfg):
                        rerank_compact=vcfg.rerank_compact)
     return StreamingEngine(spec, doc_store, query_store, stage,
                            staging=vcfg.staging,
-                           staging_depth=vcfg.staging_depth)
+                           staging_depth=vcfg.staging_depth, telemetry=tel)
 
 
 # the suite routes the corpus TokenStore through its shared cache for every
@@ -943,7 +1000,8 @@ def make_materialized_engine(spec, store: ValidationStore, vcfg):
                               doc_ids=store.doc_ids,
                               per_query=store.per_query,
                               rerank_block=vcfg.rerank_block,
-                              score_dtype=vcfg.score_dtype)
+                              score_dtype=vcfg.score_dtype,
+                              telemetry=vcfg.telemetry)
 
 
 def make_engine(spec, store: ValidationStore, vcfg):

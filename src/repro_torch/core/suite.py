@@ -5,11 +5,15 @@ metrics and retrieval cut-off; a *suite* validates every checkpoint against
 N tasks in one pass.  Each task's sampler runs once (the subset depends on
 the baseline run and qrels, never on the checkpoint), tasks over the same
 sampled corpus share one padded TokenStore, and each task's engine is built
-lazily through :func:`repro_torch.core.engine.make_engine`.
+lazily through :func:`repro_torch.core.engine.make_engine`.  A
+:class:`repro_torch.obs.Telemetry` on the config receives one ``scored``
+span per (step, task) and a ``store_build`` span per padded store, with the
+engines' spans nested under ``scored``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -51,6 +55,11 @@ class ValidationConfig:
     write_run: bool = False
     output_dir: Optional[str] = None
     run_tag: str = "asyncval"
+    # nullable repro_torch.obs.Telemetry: lifecycle spans and engine
+    # metrics; left out of comparisons, so configs that differ only in
+    # instrumentation compare equal
+    telemetry: Any = dataclasses.field(default=None, compare=False,
+                                       repr=False)
 
 
 @dataclasses.dataclass
@@ -224,11 +233,16 @@ class ValidationSuite:
                 raise ValueError("token_backing='mmap' needs mmap_dir")
             index = self._store_order.setdefault(key, len(self._store_order))
             chunk, _ = chunk_geometry(tcfg, len(data.doc_texts))
-            store = TokenStore.build(
-                data.doc_texts, max_len=self.spec.p_max_len, chunk=chunk,
-                backing=tcfg.token_backing,
-                cache_dir=doc_cache_dir(tcfg.mmap_dir, index),
-                fingerprint=tcfg.token_fingerprint)
+            tel = self.vcfg.telemetry
+            with tel.span("store_build", task=task.name,
+                          n_docs=len(data.doc_texts),
+                          backing=tcfg.token_backing) \
+                    if tel is not None else contextlib.nullcontext():
+                store = TokenStore.build(
+                    data.doc_texts, max_len=self.spec.p_max_len, chunk=chunk,
+                    backing=tcfg.token_backing,
+                    cache_dir=doc_cache_dir(tcfg.mmap_dir, index),
+                    fingerprint=tcfg.token_fingerprint)
             self._stores[key] = store
             self.store_builds += 1
         return store
@@ -276,7 +290,16 @@ class ValidationSuite:
                              f"(tasks: {', '.join(self.tasks)})")
         step, task = int(getattr(unit, "step", 0)), self.tasks[name]
         eng = engine if engine is not None else self.engine(name)
-        run, scores, timings = eng.run(params)
+        tel = self.vcfg.telemetry
+        if tel is None:
+            run, scores, timings = eng.run(params)
+        else:
+            # one scored span per (step, task); the engine's spans nest
+            # under it through the tracer's per-thread parent stack
+            with tel.span("scored", step=step, task=name,
+                          engine=getattr(eng, "name", ""),
+                          score_dtype=getattr(eng, "score_dtype", "f32")):
+                run, scores, timings = eng.run(params)
         names = list(task.metrics)
         if task.mode == "average_rank" and "AverageRank" not in names:
             names.append("AverageRank")

@@ -6,18 +6,27 @@ validation is appended to a ledger file (schema v2: one row per step and
 task, with the JAX package's keys), so a restarted validator skips ledgered
 steps.
 
-This is the solo path of ``repro/core/validator.py``; the fleet work queue,
-the snapshot hand-off, the control plane and telemetry wait for later
-slices of the port.
+This is the solo path of ``repro/core/validator.py``, with its telemetry
+hooks (spans, the checkpoint-to-verdict histogram; observation only: the
+ledger's bytes are the same with telemetry on and off); the fleet work
+queue, the snapshot hand-off and the control plane wait for later slices
+of the port.  Started as a thread (:meth:`AsyncValidator.start`) on a CUDA
+device, the validation loop runs on its own CUDA stream, so its kernels can
+overlap a trainer's on the same card and its clock reads wait for its own
+work only.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import threading
+import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, \
     Tuple
+
+import torch
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core.jsonl import append_jsonl_atomic, read_jsonl_tolerant
@@ -26,21 +35,35 @@ from repro_torch.core.suite import (SuiteResult, ValidationResult,
                                     params_from_checkpoint)
 from repro_torch.core.watcher import CheckpointWatcher, Policy
 
+CKPT_TO_VERDICT_METRIC = "validate.ckpt_to_verdict_s"
+
 
 class ErrorRing:
     """Bounded fault list: keeps the newest ``maxlen`` faults and counts the
-    overflow in ``dropped``.  Supports ``append``, ``len``, iteration,
-    indexing and truthiness."""
+    overflow in ``dropped`` (mirrored to a bound counter, the
+    ``validator.errors_dropped`` instrument under telemetry).  Supports
+    ``append``, ``len``, iteration, indexing and truthiness."""
 
     def __init__(self, maxlen: int = 256):
         self.maxlen = int(maxlen)
         self.dropped = 0
         self._ring: collections.deque = collections.deque(maxlen=self.maxlen)
+        self._counter = None        # repro_torch.obs.metrics.Counter
+
+    def bind_counter(self, counter) -> None:
+        if self.dropped and counter is not None:
+            counter.inc(self.dropped)   # count drops from before binding
+        self._counter = counter
 
     def append(self, item) -> None:
         if len(self._ring) == self.maxlen:
             self.dropped += 1
+            if self._counter is not None:
+                self._counter.inc()
         self._ring.append(item)
+
+    def clear(self) -> None:
+        self._ring.clear()
 
     def __len__(self) -> int:
         return len(self._ring)
@@ -71,11 +94,15 @@ class ValidationLedger:
     task ``"default"``; records with a ``"kind"`` key (fleet claim records)
     are skipped.  A torn final line (a crash mid-append) is dropped on load;
     a torn line elsewhere raises.  ``expected_tasks`` defines completion: a
-    step counts as validated only when every expected task has a row."""
+    step counts as validated only when every expected task has a row.
+    With ``telemetry``, each append runs inside a ``recorded`` span; the
+    bytes written are the same."""
 
     def __init__(self, path: Optional[str],
-                 expected_tasks: Optional[Sequence[str]] = None):
+                 expected_tasks: Optional[Sequence[str]] = None,
+                 telemetry=None):
         self.path = path
+        self.telemetry = telemetry
         self.expected_tasks: Optional[Tuple[str, ...]] = \
             tuple(expected_tasks) if expected_tasks is not None else None
         self._lock = threading.Lock()
@@ -135,11 +162,17 @@ class ValidationLedger:
                  "metrics": r.metrics, "timings": r.timings,
                  "subset_size": r.subset_size, "engine": r.engine,
                  "score_dtype": str(r.score_dtype)} for r in results]
+        tel = self.telemetry
         with self._lock:
             for rec in recs:
                 self._ingest(rec)
             if self.path:
-                append_jsonl_atomic(self.path, recs)
+                if tel is None:
+                    append_jsonl_atomic(self.path, recs)
+                else:
+                    with tel.span("recorded", step=recs[0]["step"],
+                                  task=recs[0]["task"], n_rows=len(recs)):
+                        append_jsonl_atomic(self.path, recs)
 
 
 class ValidatorWorker:
@@ -153,7 +186,7 @@ class ValidatorWorker:
                  logger: Optional[BaseLogger] = None,
                  params_extractor: Callable = params_from_checkpoint,
                  template: Optional[dict] = None,
-                 engine: Any = None, max_errors: int = 256):
+                 engine: Any = None, telemetry=None, max_errors: int = 256):
         self.ckpt_root = ckpt_root
         self.pipeline = pipeline
         self.logger = logger
@@ -164,8 +197,15 @@ class ValidatorWorker:
         expected = tuple(getattr(pipeline, "task_names", ())
                          or ("default",))
         self.ledger = ledger if ledger is not None \
-            else ValidationLedger(None, expected_tasks=expected)
+            else ValidationLedger(None, expected_tasks=expected,
+                                  telemetry=telemetry)
+        self.telemetry = telemetry
         self.errors = ErrorRing(max_errors)
+        if telemetry is not None:
+            self.errors.bind_counter(
+                telemetry.metrics.counter("validator.errors_dropped"))
+            if self.ledger.telemetry is None:
+                self.ledger.telemetry = telemetry
         self._params_step: Optional[int] = None
         self._params: Any = None
 
@@ -202,7 +242,29 @@ class ValidatorWorker:
             self.invalidate_params_cache()
             raise
         self.ledger.record(result)
+        if self.telemetry is not None:
+            self._observe_verdict(step)
         return result
+
+    def _observe_verdict(self, step: int) -> None:
+        """Checkpoint-to-verdict latency, from the earliest mark there is:
+        ``produced`` (the trainer handed the state to the save path), then
+        ``snapshotted``, then ``discovered`` (the watcher's poll), else the
+        COMMIT marker's mtime (wall clock).  Metrics only."""
+        tel = self.telemetry
+        lag = None
+        for mark in ("produced", "snapshotted", "discovered"):
+            lag = tel.since(mark, step)
+            if lag is not None:
+                break
+        if lag is None:
+            marker = os.path.join(ckpt._step_dir(self.ckpt_root, step),
+                                  ckpt.COMMIT_MARKER)
+            try:
+                lag = max(0.0, time.time() - os.path.getmtime(marker))
+            except OSError:
+                return
+        tel.metrics.histogram(CKPT_TO_VERDICT_METRIC).observe(lag)
 
 
 class AsyncValidator:
@@ -212,7 +274,9 @@ class AsyncValidator:
     anything with ``validate_params(params, step=, engine=)``, ``spec`` and
     ``task_names``).  A validation that raises is recorded in ``errors``
     and retried on a later poll, up to ``max_retries`` times: validation
-    must never take training down."""
+    must never take training down.  ``telemetry`` (a
+    :class:`repro_torch.obs.Telemetry`) reaches the watcher, the worker,
+    the ledger and, when the suite's config has none, the suite's engines."""
 
     def __init__(self, ckpt_root: str, pipeline, *,
                  logger: Optional[BaseLogger] = None,
@@ -222,16 +286,26 @@ class AsyncValidator:
                  poll_interval_s: float = 0.2,
                  params_extractor: Callable = params_from_checkpoint,
                  template: Optional[dict] = None,
-                 engine: Any = None, max_retries: int = 2):
+                 engine: Any = None, max_retries: int = 2,
+                 telemetry=None):
         self.ckpt_root = ckpt_root
-        self.watcher = CheckpointWatcher(ckpt_root, policy=policy)
+        self.telemetry = telemetry
+        self.watcher = CheckpointWatcher(ckpt_root, policy=policy,
+                                         telemetry=telemetry)
         self.max_num_valid = max_num_valid
         expected = tuple(getattr(pipeline, "task_names", ()) or ("default",))
+        if telemetry is not None:
+            # engine spans: thread the handle through the suite's config
+            vcfg = getattr(pipeline, "vcfg", None)
+            if vcfg is not None \
+                    and getattr(vcfg, "telemetry", None) is None:
+                vcfg.telemetry = telemetry
         self.worker = ValidatorWorker(
             ckpt_root, pipeline,
-            ledger=ValidationLedger(ledger_path, expected_tasks=expected),
+            ledger=ValidationLedger(ledger_path, expected_tasks=expected,
+                                    telemetry=telemetry),
             logger=logger, params_extractor=params_extractor,
-            template=template, engine=engine)
+            template=template, engine=engine, telemetry=telemetry)
         self.poll_interval_s = poll_interval_s
         self.results: List[ValidationResult] = []
         self._stop = threading.Event()
@@ -247,10 +321,17 @@ class AsyncValidator:
     def validate_pending(self) -> int:
         return self._validate(self.watcher.poll())
 
-    def _validate(self, steps) -> int:
+    def validate_step(self, step: int) -> int:
+        """Validate one committed step now, bypassing the watcher policy
+        and the ``max_num_valid`` cap (still ledger-idempotent, still
+        logged)."""
+        self.watcher.mark_seen(step)
+        return self._validate([step], ignore_cap=True)
+
+    def _validate(self, steps, *, ignore_cap: bool = False) -> int:
         n = 0
         for step in steps:
-            if self.max_num_valid is not None \
+            if not ignore_cap and self.max_num_valid is not None \
                     and len(self.results) >= self.max_num_valid:
                 break
             if step in self.ledger:
@@ -274,17 +355,28 @@ class AsyncValidator:
             n += 1
         return n
 
+    def _own_stream(self):
+        """The validation thread's own CUDA stream when the suite's encoder
+        runs on a card (a null context otherwise): with the default stream
+        its kernels would serialise with a trainer's on the same card."""
+        spec = getattr(self.worker.pipeline, "spec", None)
+        device = getattr(spec, "device", None)
+        if device is None or torch.device(device).type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.stream(torch.cuda.Stream(torch.device(device)))
+
     def start(self) -> None:
         if self._thread is not None:
             raise RuntimeError("validator already started")
 
         def loop():
-            while not self._stop.is_set():
-                self.validate_pending()
-                if self.max_num_valid is not None \
-                        and len(self.results) >= self.max_num_valid:
-                    return
-                self._stop.wait(self.poll_interval_s)
+            with self._own_stream():
+                while not self._stop.is_set():
+                    self.validate_pending()
+                    if self.max_num_valid is not None \
+                            and len(self.results) >= self.max_num_valid:
+                        return
+                    self._stop.wait(self.poll_interval_s)
 
         self._thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()

@@ -46,3 +46,32 @@ def biencoder_spec(cfg: tfm.TransformerConfig, *, pooling: str = "cls",
                        param_shapes=tfm.param_shapes(cfg),
                        device=torch.device(device), q_max_len=q_max_len,
                        p_max_len=p_max_len)
+
+
+def contrastive_loss(params, spec: EncoderSpec, batch, *,
+                     temperature: float = 1.0):
+    """In-batch-negative softmax cross-entropy (the Tevatron / DPR training
+    objective) -> ``(loss, {"contrastive_acc": acc})``, 0-d f32 tensors.
+
+    batch: ``{"q_tokens": (B, Lq), "q_mask": (B, Lq), "p_tokens": (B, n_psg,
+    Lp), "p_mask": (B, n_psg, Lp)}``.  ``p[i, 0]`` is query i's positive;
+    every other passage of the batch is a negative for it (so ``n_psg - 1``
+    hard negatives per query), and the labels are ``arange(B) * n_psg``.
+    The encoder runs the plain attention (the BERT trunk always passes a
+    key mask), so gradients flow through it."""
+    q = spec.encode_query(params, batch["q_tokens"], batch["q_mask"])
+    B, n_psg, Lp = batch["p_tokens"].shape
+    p = spec.encode_passage(params, batch["p_tokens"].reshape(B * n_psg, Lp),
+                            batch["p_mask"].reshape(B * n_psg, Lp))
+    scores = (q @ p.T) / temperature                        # (B, B * n_psg)
+    labels = torch.arange(B, device=scores.device) * n_psg
+    lse = torch.logsumexp(scores, dim=-1)
+    pos = scores.gather(1, labels[:, None])[:, 0]
+    loss = torch.mean(lse - pos)
+    acc = torch.mean((torch.argmax(scores, dim=-1) == labels).float())
+    return loss, {"contrastive_acc": acc}
+
+
+def loss_fn(params, cfg: tfm.TransformerConfig, batch):
+    """Registry-compatible loss entry (family ``biencoder``)."""
+    return contrastive_loss(params, biencoder_spec(cfg), batch)

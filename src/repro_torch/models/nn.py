@@ -28,10 +28,12 @@ def to_torch_tree(tree: Any, device=None) -> Any:
     if not arr.flags.writeable:         # e.g. a view of a JAX array
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        # np.require keeps a 0-d leaf 0-d (ascontiguousarray makes it 1-d)
+        t = torch.from_numpy(
+            np.require(arr, requirements="C").view(np.int16))
         t = t.view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.require(arr, requirements="C"))
     return t.to(device) if device is not None else t
 
 

@@ -298,10 +298,15 @@ def _layer(p, x, cfg: TransformerConfig, *, positions, cache=None,
     return x + _dense_mlp(p["mlp"], _norm(p["mlp_norm"], x, cfg), cfg), cache
 
 
-def _layer_params(stack, i: int):
+def _unstack(stack, n: int):
+    """The ``n`` per-layer trees of views of the stacked ``(L, ...)``
+    leaves.  Each leaf is unbound once, so under autograd its gradient is
+    assembled by one ``stack``, where indexing each layer's slice would
+    build and add a zero-filled ``(L, ...)`` gradient per layer."""
     if isinstance(stack, dict):
-        return {key: _layer_params(val, i) for key, val in stack.items()}
-    return stack[i]
+        per_key = {key: _unstack(val, n) for key, val in stack.items()}
+        return [{key: per_key[key][i] for key in stack} for i in range(n)]
+    return stack.unbind(0)
 
 
 def forward(params, cfg: TransformerConfig, tokens: torch.Tensor, *,
@@ -321,11 +326,12 @@ def forward(params, cfg: TransformerConfig, tokens: torch.Tensor, *,
         x = x + nn.embedding(params["pos_embed"], positions, cd)
     stack = params["dense_layers"]
     dense = caches["dense"] if caches is not None else None
-    for i in range(stack["attn"]["wq"].shape[0]):
+    layers = _unstack(stack, stack["attn"]["wq"].shape[0])
+    for i, layer in enumerate(layers):
         cache = None if dense is None else {"k": dense["k"][i],
                                             "v": dense["v"][i]}
-        x, _ = _layer(_layer_params(stack, i), x, cfg, positions=positions,
-                      cache=cache, cache_index=cache_index, kv_mask=kv_mask)
+        x, _ = _layer(layer, x, cfg, positions=positions, cache=cache,
+                      cache_index=cache_index, kv_mask=kv_mask)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _norm(params["final_norm"], x, cfg), caches, aux
 

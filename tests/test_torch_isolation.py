@@ -106,3 +106,34 @@ def test_splitter_main_runs_without_jax_or_repro(tmp_path):
     assert proc.returncode == 0, proc.stderr
     with open(tmp_path / "out" / "subset_top1.jsonl") as f:
         assert [line.split('"')[3] for line in f] == ["d3", "d5"]
+
+
+def test_launch_train_runs_without_jax_or_repro(tmp_path):
+    """``python -m repro_torch.launch.train`` (trainer, async saver,
+    validator thread, telemetry-free) end to end on the CPU with jax,
+    ml_dtypes and repro blocked; the trainer's modules and ``obs`` are in
+    the static scan above."""
+    script = (
+        "import runpy, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes',"
+        " 'repro'):\n"
+        "            raise ImportError(name + ' is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import repro_torch.obs, repro_torch.obs.export\n"
+        "sys.argv = ['train', '--device', 'cpu', '--workdir', sys.argv[1],"
+        " '--steps', '6', '--ckpt-every', '3', '--corpus-size', '60',"
+        " '--n-queries', '6']\n"
+        "runpy.run_module('repro_torch.launch.train', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    import json
+    with open(tmp_path / "summary.json") as f:
+        summary = json.load(f)
+    assert summary["validated_steps"] == [3, 6] and not summary["errors"]
+    assert any(p.endswith(os.path.join("repro_torch", "train", "trainer.py"))
+               for p in _sources())

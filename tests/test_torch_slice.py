@@ -124,8 +124,9 @@ def test_port_cli_matches_jax_cli(filespace, tmp_path, score_dtype):
 def test_unported_flags_raise(filespace, tmp_path):
     base = _args(filespace, tmp_path, "torch_encoder") + ["--device", "cpu"]
     for extra in (["--serve"], ["--keep_top_k", "2"], ["--worker"],
-                  ["--handoff_spool", "x"], ["--obs_report"],
-                  ["--scan_window", "4"], ["--policy", "budget"]):
+                  ["--handoff_spool", "x"], ["--stop_file", "x"],
+                  ["--early_stop"], ["--ensemble_top_k", "2"],
+                  ["--scan_window", "4"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             torch_main(base + extra)
 

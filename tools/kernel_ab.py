@@ -2,6 +2,7 @@
 
     python3 tools/kernel_ab.py flash ROOT [ROOT ...] [--lm]
     python3 tools/kernel_ab.py decode ROOT [ROOT ...] [--plans]
+    python3 tools/kernel_ab.py train ROOT [ROOT ...] [--deterministic]
 
 Each ROOT is a checkout (its ``src/`` holds ``repro_torch``), for example
 the parent commit unpacked with ``git archive`` into a git-ignored
@@ -27,6 +28,14 @@ their sum.
   host time per call at the serve shape (500 calls, no synchronisation).
   ``--plans`` adds, for a ROOT that has ``ops.split_plan``, the long_500k
   layer under plans for 1 to 4 waves of the device's resident blocks.
+* ``train``: no kernel of its own: full-width dr-bert-base training steps
+  as ``chip_smoke.py``'s train phase runs them (f32, AdamW with its
+  warmup, temperature 0.05, 16 queries x 2 passages of 128 tokens):
+  ``step_ms`` (median, least and most of 10 steps, each from its start to
+  the host read of its loss), and from a ``torch.profiler`` window over 2
+  steps the device time and the kernel launches per step and the 8 kernels
+  with the most device time.  ``--deterministic`` runs the steps under
+  ``torch.use_deterministic_algorithms``, as the train phase does.
 
 The first line is ``nvidia-smi``'s name and power limit.  Needs a CUDA
 device; imports nothing of JAX.
@@ -51,7 +60,8 @@ DECODE_SHAPES = [("decode_32k", 128, 2, 7, 64, 32768, 32768),
                  ("qwen2_72b", 8, 8, 8, 128, 32768, 32768)]
 # kernel -> (names in the profiler's kernel records, its extra flag)
 KERNELS = {"flash": (("flash_fwd",), "--lm"),
-           "decode": (("decode_split", "decode_merge"), "--plans")}
+           "decode": (("decode_split", "decode_merge"), "--plans"),
+           "train": ((), "--deterministic")}
 
 
 class Bench:
@@ -213,6 +223,64 @@ def decode(bench: Bench, plans: bool) -> None:
         torch.cuda.empty_cache()
 
 
+def train(bench: Bench, deterministic: bool) -> None:
+    import dataclasses
+
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.data import corpus
+    from repro_torch.launch.train import _contrastive_batches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.biencoder import biencoder_spec, contrastive_loss
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import make_train_step
+    from torch.profiler import ProfilerActivity, profile
+
+    torch = bench.torch
+    if deterministic:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+    cfg = dataclasses.replace(dr_bert_base.full_config(),
+                              compute_dtype=torch.float32)
+    spec = biencoder_spec(cfg, q_max_len=32, p_max_len=128, device=bench.dev)
+    ds = corpus.synthetic_retrieval_dataset(0, n_passages=8192,
+                                            n_queries=256,
+                                            vocab=cfg.vocab_size, p_len=128,
+                                            q_len=32)
+    make = _contrastive_batches(ds, spec, 16)
+    batches = [make(i) for i in range(13)]
+    opt = optim.adamw(optim.warmup_cosine(3e-5, 20, 240))
+    step = make_train_step(
+        lambda p, b: contrastive_loss(p, spec, b, temperature=0.05), opt)
+    params = tfm.params_from_numpy(tfm.init_numpy(cfg, 11), bench.dev)
+    state = [params, opt.init(params)]
+
+    def one(i):
+        state[0], state[1], m = step(state[0], state[1], batches[i])
+        return float(m["loss"])
+
+    one(0)
+    ms = []
+    for i in range(1, 11):
+        t0 = time.perf_counter()
+        one(i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one(11)
+        one(12)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_time_total > 0]
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    bench.emit(shape="dr_bert_base_f32_16x2", deterministic=deterministic,
+               step_ms={"median": statistics.median(ms), "min": min(ms),
+                        "max": max(ms)},
+               device_ms_per_step=sum(e.device_time_total
+                                      for e in kernels) / 2e3,
+               launches_per_step=sum(e.count for e in kernels) / 2,
+               top=[{"name": e.key[:80], "device_ms": e.device_time_total
+                     / 2e3, "count": e.count / 2} for e in top])
+
+
 def main(argv) -> int:
     if len(argv) < 2 or argv[0] not in KERNELS:
         print(__doc__, file=sys.stderr)
@@ -223,8 +291,8 @@ def main(argv) -> int:
     roots = [a for a in args if a != flag]
     if len(roots) == 2 and roots[0] == "--root":      # one child process
         sys.path.insert(0, os.path.join(os.path.abspath(roots[1]), "src"))
-        {"flash": flash, "decode": decode}[kernel](Bench(roots[1], names),
-                                                   extra)
+        {"flash": flash, "decode": decode,
+         "train": train}[kernel](Bench(roots[1], names), extra)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
