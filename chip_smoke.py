@@ -116,8 +116,22 @@ Phases, each printing one JSON line:
                 ledgered once, the loss falls, topk_mips launched from the
                 validator thread, equal metrics between the modes; step ms
                 alone and with a validation in flight, walls,
-                checkpoint-to-verdict, seconds in ``_save``, MRR@10; (d) the
-                last checkpoint restored through the port leaf for leaf; (e)
+                checkpoint-to-verdict, seconds in ``_save``, MRR@10; (f) the
+                control plane and the snapshot hand-off on the async loop
+                (``launch.train``'s ``make_handoff`` / ``make_control`` /
+                ``drive``, under the same deterministic algorithms): a
+                checkpoint every 40 steps handed over as a host snapshot (a
+                ring of 2), early stop on MRR@10 (patience 2, min_delta 1.0:
+                a plateau at the third verdict), GC to the top 2, a soup of
+                the top 2 after the drain; gates: a plateau STOP written on
+                the validator thread, the trainer halted before step 240,
+                GC deleted only validated steps, the soup committed and
+                ledgered, the snapshot-scored rows equal to a durable
+                re-validation in a fresh ledger (metrics, top-k lists),
+                replay byte-identical to the online decisions, the ring
+                empty at the end; checkpoint-to-verdict with hand-off, the
+                peak bytes the ring held, the wall; (d) the last checkpoint
+                of (b) restored through the port leaf for leaf; (e)
                 ``python -m repro_torch.launch.train`` on its smoke config;
                 a ``"phase": "subset", "part": "f", "weights": "trained"``
                 line: fidelity of the splitter's subset on the trained
@@ -1179,6 +1193,14 @@ TRAIN_SEED = 11
 # the first steps on the card against the CPU (2 of the 12 layers): losses
 # within this relative difference
 TRAIN_CPU_STEPS, TRAIN_CPU_TOL = 3, 1e-3
+# the control + hand-off run (part f): a checkpoint every 40 steps, each
+# handed to the validator as a host snapshot (a ring of 2), early stop on
+# MRR@10 with patience 2 and a min_delta no checkpoint can beat (MRR@10
+# lies in [0, 1]), so the third verdict is a plateau by construction; GC
+# keeps the top 2, the soup takes the top 2
+CONTROL_CKPT_EVERY, CONTROL_CAPACITY = 40, 2
+CONTROL_PATIENCE, CONTROL_MIN_DELTA = 2, 1.0
+CONTROL_KEEP_TOP_K, CONTROL_ENSEMBLE_TOP_K = 2, 2
 
 
 def train_loss(spec):
@@ -1366,6 +1388,214 @@ def _summary(run):
                       for r in run["rows"]}}
 
 
+def control_run(device, ds, work):
+    """(f) The control plane and the snapshot hand-off on the async loop,
+    through ``repro_torch.launch.train``'s pieces (``make_handoff``,
+    ``make_control``, ``drive``): the trainer publishes each checkpoint's
+    params as a host snapshot, the validator thread scores it before the
+    durable save commits, the control plane ranks it, deletes checkpoints
+    outside the top 2 once their evidence is durable, writes the STOP
+    marker on the plateau and, after the drain, soups the top 2 into a
+    virtual checkpoint that is validated like the others.  Gated: the STOP
+    marker's verdict is a plateau written from the validator thread; the
+    trainer stopped before its last step; GC deleted at least one
+    checkpoint and only validated ones; the soup is committed and
+    ledgered; the snapshot-scored rows are the published and not dropped
+    steps, and their metrics and top-k lists equal a durable re-validation
+    in a fresh ledger; replaying the ledger gives the online decisions byte
+    for byte; the channel holds nothing at the end."""
+    import dataclasses
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.control import (ControlEventLog, replay_ledger,
+                                     stop_requested)
+    from repro_torch.obs import read_trace
+    from repro_torch.core.metrics import read_trec_run
+    from repro_torch.core.suite import (ValidationConfig, ValidationSuite,
+                                        ValidationTask)
+    from repro_torch.core.validator import (CKPT_TO_VERDICT_METRIC,
+                                            AsyncValidator)
+    from repro_torch.launch.train import (_contrastive_batches, drive,
+                                          make_control, make_handoff)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.biencoder import biencoder_spec
+    from repro_torch.obs import Telemetry
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(dr_bert_base.full_config(),
+                              compute_dtype=torch.float32)
+    spec = biencoder_spec(cfg, q_max_len=32, p_max_len=128, device=device)
+    trace = os.path.join(work, "trace.jsonl")
+    tel = Telemetry(trace, process="control")
+
+    def make_suite(runs_dir, telemetry):
+        vcfg = ValidationConfig(metrics=("MRR@10", "Recall@100"), k=100,
+                                batch_size=256, chunk_size=1024,
+                                impl="cuda", score_dtype="f32",
+                                write_run=True, output_dir=runs_dir,
+                                telemetry=telemetry)
+        suite = ValidationSuite(spec, [ValidationTask(
+            "default", ds.corpus, ds.queries, ds.qrels)], vcfg)
+        suite.build_engines()
+        return suite
+
+    suite = make_suite(os.path.join(work, "runs"), tel)
+    ckdir = os.path.join(work, "ckpts")
+    stop_file = os.path.join(work, "STOP")
+    snapshots = make_handoff(True, CONTROL_CAPACITY, telemetry=tel)
+    control = make_control(ckdir, work, patience=CONTROL_PATIENCE,
+                           min_delta=CONTROL_MIN_DELTA,
+                           keep_top_k=CONTROL_KEEP_TOP_K,
+                           ensemble_top_k=CONTROL_ENSEMBLE_TOP_K,
+                           snapshots=snapshots, telemetry=tel)
+    validator = AsyncValidator(ckdir, suite, telemetry=tel,
+                               controller=control, snapshots=snapshots,
+                               ledger_path=os.path.join(work, "ledger.jsonl"),
+                               poll_interval_s=0.05)
+    published, held = [], [0]
+
+    def on_publish(step):
+        published.append(step)
+        held[0] = max(held[0], snapshots.nbytes())
+
+    snapshots.subscribe(on_publish)
+    stopped_by = {}
+    trigger = control.earlystop._trigger
+
+    def traced_trigger(step, reason):
+        stopped_by["tid"] = threading.get_ident()
+        trigger(step, reason)
+
+    control.earlystop._trigger = traced_trigger
+    params = tfm.params_from_numpy(tfm.init_numpy(cfg, TRAIN_SEED), device)
+    trainer = Trainer(
+        TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=CONTROL_CKPT_EVERY,
+                      ckpt_dir=ckdir, log_every=1, stop_file=stop_file,
+                      snapshots=snapshots),
+        train_loss(spec), train_optimizer(), params,
+        _contrastive_batches(ds, spec, TRAIN_BATCH), telemetry=tel)
+    history = []
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    ensemble = drive(trainer, validator, suite, control, sync=False,
+                     ckpt_every=CONTROL_CKPT_EVERY,
+                     on_metrics=lambda step, m: history.append(
+                         (step, m["loss"])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in all_launches().items() if n}
+    tel.flush()
+    check(not validator.errors, f"control: validation errors "
+          f"{list(validator.errors)}")
+    with open(os.path.join(work, "ledger.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    steps = [r["step"] for r in rows]
+    verdict = stop_requested(stop_file)
+    main_tid = threading.get_ident()
+    check(verdict is not None and verdict["reason"] == "plateau"
+          and stopped_by.get("tid") not in (None, main_tid),
+          f"control: STOP marker {verdict}, written on thread "
+          f"{stopped_by.get('tid')} (main {main_tid})")
+    check(trainer.stopped_early and trainer.step < TRAIN_STEPS,
+          f"control: the trainer ran to step {trainer.step} "
+          f"(stopped early: {trainer.stopped_early})")
+    events = ControlEventLog(os.path.join(work, "control.jsonl")).events()
+    deleted = sorted(s for e in events if e.kind == "gc"
+                     for s in e.payload["deleted"])
+    check(deleted and set(deleted) <= set(steps),
+          f"control: GC deleted {deleted}; validated {steps}")
+    check(ensemble is not None and ensemble["step"] in steps
+          and ensemble["step"] in ckpt.list_steps(ckdir)
+          and ckpt.read_extra(ckdir, ensemble["step"]).get("virtual"),
+          f"control: soup {ensemble}, ledger steps {steps}")
+    snap_rows = [r["step"] for r in rows if r.get("handoff") == "snapshot"]
+    want_snap = [s for s in published if s not in snapshots.dropped]
+    check(snap_rows and sorted(snap_rows) == sorted(want_snap),
+          f"control: snapshot-scored rows {snap_rows}, published "
+          f"{published}, dropped {snapshots.dropped}")
+    check(snapshots.nbytes() == 0, f"control: the channel still holds "
+          f"{snapshots.nbytes()} bytes")
+    online = [e.to_json() for e in ControlEventLog(
+        os.path.join(work, "control.jsonl")).decisions()]
+    replayed = [e.to_json() for e in replay_ledger(
+        rows, control.cfg, train_history=history).events.decisions()]
+    check(online and replayed == online, f"control: replay gives "
+          f"{len(replayed)} decisions, online {len(online)}; "
+          f"equal: {replayed == online}")
+    hist = tel.metrics.get(CKPT_TO_VERDICT_METRIC)
+    # checkpoint-to-verdict of the trained checkpoints (the soup has no
+    # trainer mark): from the trainer's `produced` event to the end of the
+    # step's ledger append
+    recs = read_trace(trace)
+    produced = {r["step"]: r["t"] for r in recs if r["name"] == "produced"}
+    verdict_s = sorted(r["t0"] + r["dur"] - produced[r["step"]]
+                       for r in recs if r["name"] == "recorded"
+                       and r["step"] in produced)
+    spans, scored_tid = _validation_spans(trace)
+    on_thread = sum(tid != main_tid for tid in scored_tid.values())
+    check(counts.get("topk_mips_f32", 0) > 0 and on_thread > 0,
+          f"control: topk_mips launches {counts}, {on_thread} checkpoints "
+          "scored on the validator thread")
+    # the snapshot-scored steps still on disk, validated again from their
+    # durable checkpoints in a fresh ledger
+    again = [s for s in snap_rows if s in ckpt.list_steps(ckdir)]
+    check(bool(again), f"control: no snapshot-scored step left on disk "
+          f"({snap_rows}, kept {ckpt.list_steps(ckdir)})")
+    durable = AsyncValidator(ckdir, make_suite(os.path.join(work,
+                                                            "runs_durable"),
+                                               None),
+                             ledger_path=os.path.join(work, "durable.jsonl"))
+    for s in again:
+        durable.validate_step(s)
+    check(not durable.errors, f"control: re-validation {durable.errors}")
+    redo = {r["step"]: r["metrics"] for r in durable.ledger.rows()}
+    first = {r["step"]: r["metrics"] for r in rows}
+    lists = differ = 0
+    for s in again:
+        a = read_trec_run(os.path.join(work, "runs",
+                                       f"asyncval_step{s}.trec"))
+        b = read_trec_run(os.path.join(work, "runs_durable",
+                                       f"asyncval_step{s}.trec"))
+        lists += len(a)
+        differ += sum(1 for qid in a if a[qid] != b.get(qid))
+    metrics_equal = all(redo[s] == first[s] for s in again)
+    check(metrics_equal and differ == 0, f"control: snapshot vs durable "
+          f"metrics equal {metrics_equal}, {differ} of {lists} lists differ")
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    emit({"phase": "train", "part": "f", "entry": "control + hand-off",
+          "wall_s": wall, "seconds": time.perf_counter() - t_part,
+          "ckpt_every": CONTROL_CKPT_EVERY, "capacity": CONTROL_CAPACITY,
+          "last_step": trainer.step, "stop_verdict": verdict,
+          "stop_written_on_validator_thread": True,
+          "ledger_steps": steps, "snapshot_scored": snap_rows,
+          "published": published, "dropped": snapshots.dropped,
+          "gc_deleted": deleted, "kept": ckpt.list_steps(ckdir),
+          "ensemble": ensemble, "launches": counts,
+          "validator_thread_scored": on_thread,
+          "ckpt_to_verdict_s": {"p50": statistics.median(verdict_s),
+                                "max": verdict_s[-1],
+                                "count": len(verdict_s),
+                                "histogram_p50_with_soup":
+                                    hist.percentile(50)},
+          "pinned_bytes_held_peak": held[0],
+          # pinned blocks the caching host allocator holds (for reuse)
+          "host_allocated_bytes": {k: v for k, v in host_stats().items()
+                                   if k.startswith("allocated_bytes.")
+                                   and k.endswith(("current", "peak"))}
+          if host_stats else None,
+          "revalidated": again, "lists": lists, "lists_differ": differ,
+          "metrics_equal": metrics_equal,
+          "decisions": len(online), "replay_equal": True,
+          "total_s_ledger": {r["step"]: r["timings"]["total_s"]
+                             for r in rows},
+          "mrr10": {r["step"]: r["metrics"]["MRR@10"] for r in rows}})
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+
 def train_cpu_part(device, ds):
     """(a) The first steps of the trainer on the card and on the CPU from
     the same initial params and batches, dr-bert-base cut to 2 layers."""
@@ -1397,8 +1627,9 @@ def train_cpu_part(device, ds):
 
 def train_phase(device, ds, trace: bool = False):
     """(a) card vs CPU, (b) the async loop (Fig. 1b), (c) the sync loop
-    (Fig. 1a), both gated, (d) a port checkpoint restored through the port,
-    (e) ``python -m repro_torch.launch.train`` on its smoke config, (f)
+    (Fig. 1a), both gated, (f) the control plane and the hand-off on the
+    async loop, (d) a port checkpoint restored through the port, (e)
+    ``python -m repro_torch.launch.train`` on its smoke config, and the
     fidelity of the splitter's subset on the trained checkpoints; with
     ``trace``, a profile of a few training steps.  The loops run under
     ``torch.use_deterministic_algorithms`` (with the cuBLAS workspace
@@ -1417,6 +1648,7 @@ def train_phase(device, ds, trace: bool = False):
         runs = {mode: train_run(device, ds, mode,
                                 os.path.join(WORK, f"train_{mode}"))
                 for mode in ("async", "sync")}
+        control_run(device, ds, os.path.join(WORK, "train_control"))
         if trace:
             train_trace(device, ds, "train_3_steps_deterministic")
     finally:

@@ -141,11 +141,11 @@ def _dict_key_ids(buf: bytes) -> List[int]:
     return ids
 
 
-def treedef_keypaths(treedef: Union[str, bytes]) -> List[KeyPath]:
-    """Each leaf's key path, in leaf order, from a reference manifest's
-    ``treedef`` (hex string or bytes): a tuple of dict keys (str) and
-    list / tuple indices (int), as ``jax.tree_util.tree_flatten_with_path``
-    gives them.  The proto lists nodes in post-order (children before their
+def _treedef_root(treedef: Union[str, bytes]):
+    """Decode a manifest ``treedef`` (hex string or bytes) into its root
+    node: ``("leaf",)``, ``("none",)``, ``("dict", [(key, child), ...])``,
+    ``("list", [child, ...])`` or ``("tuple", [child, ...])``, children in
+    leaf order.  The proto lists nodes in post-order (children before their
     parent), each with its kind, arity and, for a dict, the ids of its keys
     in an interned-string table.  Node kinds other than dict, list, tuple,
     None and leaf raise ``ValueError``."""
@@ -178,35 +178,64 @@ def treedef_keypaths(treedef: Union[str, bytes]) -> List[KeyPath]:
                              f"arity {arity} has {len(stack)} children")
         children = stack[len(stack) - arity:] if arity else []
         del stack[len(stack) - arity:]
-        if kind == _LEAF:
-            stack.append(None)
-        elif kind == _NONE:
-            stack.append(())
-        elif kind == _DICT:
+        if kind == _DICT:
             if len(key_ids) != arity:
                 raise ValueError(f"treedef: a dict of arity {arity} has "
                                  f"{len(key_ids)} keys")
             if any(i >= len(strings) for i in key_ids):
                 raise ValueError(f"treedef: dict key ids {key_ids} outside "
                                  f"a table of {len(strings)} strings")
-            stack.append(tuple((strings[i], c)
-                               for i, c in zip(key_ids, children)))
+            stack.append(("dict", [(strings[i], c)
+                                   for i, c in zip(key_ids, children)]))
+        elif kind in (_LIST, _TUPLE):
+            stack.append((_KIND_NAMES[kind], children))
         else:
-            stack.append(tuple(enumerate(children)))
+            stack.append(("leaf",) if kind == _LEAF else ("none",))
     if len(stack) != 1:
         raise ValueError(f"treedef: {len(stack)} roots")
+    return stack[0]
 
+
+def treedef_keypaths(treedef: Union[str, bytes]) -> List[KeyPath]:
+    """Each leaf's key path, in leaf order, from a reference manifest's
+    ``treedef`` (hex string or bytes): a tuple of dict keys (str) and
+    list / tuple indices (int), as ``jax.tree_util.tree_flatten_with_path``
+    gives them.  Node kinds other than dict, list, tuple, None and leaf
+    raise ``ValueError``."""
     out: List[KeyPath] = []
 
     def walk(node, prefix):
-        if node is None:
+        kind = node[0]
+        if kind == "leaf":
             out.append(prefix)
-            return
-        for key, child in node:
-            walk(child, prefix + (key,))
+        elif kind == "dict":
+            for key, child in node[1]:
+                walk(child, prefix + (key,))
+        elif kind in ("list", "tuple"):
+            for i, child in enumerate(node[1]):
+                walk(child, prefix + (i,))
 
-    walk(stack[0], ())
+    walk(_treedef_root(treedef), ())
     return out
+
+
+def treedef_skeleton(treedef: Union[str, bytes]) -> pytree.TreeDef:
+    """The tree structure a manifest ``treedef`` encodes, as a
+    :class:`~repro_torch.core.pytree.TreeDef` whose ``unflatten`` rebuilds
+    the tree from its leaves in leaf order (dicts, lists, tuples and None
+    nodes as they were saved)."""
+    def build(node):
+        kind = node[0]
+        if kind == "leaf":
+            return pytree._LEAF
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {key: build(child) for key, child in node[1]}
+        children = [build(child) for child in node[1]]
+        return children if kind == "list" else tuple(children)
+
+    return pytree.TreeDef(build(_treedef_root(treedef)))
 
 
 def _varint_bytes(n: int) -> bytes:

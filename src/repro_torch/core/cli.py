@@ -16,13 +16,17 @@ CLI raises instead of falling back to the CPU.  ``--mode rerank`` /
 ``average_rank`` (with ``--run_file`` / ``--depth`` for their samplers),
 ``--engine materialized`` (with ``--rerank_block``) and ``--token_backing
 mmap`` (with ``--mmap_dir`` and ``--token_fingerprint``) work as in the
-reference.  Flags of parts not yet ported raise ``NotImplementedError``:
-serving (``--serve*``), the control plane (``--keep_top_k``, ``--ema``,
-``--early_stop*``, ``--stop_file``, ``--ensemble_top_k``), the fleet
-(``--worker``, ``--worker_id``, ``--capabilities``, ``--lease_ttl``,
-``--max_abandons``), hand-off (``--handoff_spool``) and ``--scan_window``.
-``--policy budget`` and the telemetry flags (``--obs_trace``,
-``--obs_report``, ``--obs_metrics``) work as in the reference.
+reference, and so do the control plane (``--keep_top_k``, ``--ema``,
+``--early_stop*``, ``--stop_file``, ``--ensemble_top_k``: ledger-driven
+selection, quality-aware GC, the STOP marker, a checkpoint soup scored
+after validation, every decision in ``<run_name>_control.jsonl``), the
+hand-off spool (``--handoff_spool``: pre-durable snapshots a trainer
+spills, validated ahead of their checkpoint's COMMIT), ``--policy budget``
+and the telemetry flags (``--obs_trace``, ``--obs_report``,
+``--obs_metrics``).  Flags of parts not yet ported raise
+``NotImplementedError``: serving (``--serve*``), the fleet (``--worker``,
+``--worker_id``, ``--capabilities``, ``--lease_ttl``, ``--max_abandons``)
+and ``--scan_window``.
 """
 
 from __future__ import annotations
@@ -44,13 +48,8 @@ from repro_torch.core.registry import (ENCODERS, ENGINES, IMPLS, MODES,
 _NOT_PORTED = {
     "serve": False, "serve_k": None, "serve_batch": None,
     "serve_flush_ms": None, "serve_pending": None, "serve_events": None,
-    "keep_top_k": None, "ema": None, "early_stop": False,
-    "early_stop_metric": None, "early_stop_patience": None,
-    "early_stop_min_delta": None, "early_stop_window": None,
-    "stop_file": None, "ensemble_top_k": None,
     "worker": False, "worker_id": None, "capabilities": None,
-    "lease_ttl": None, "max_abandons": None, "handoff_spool": None,
-    "scan_window": None,
+    "lease_ttl": None, "max_abandons": None, "scan_window": None,
 }
 
 
@@ -205,6 +204,47 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--obs_metrics", default=None,
                     help="dump the metrics-registry snapshot as JSON to "
                          "this path at exit")
+    ap.add_argument("--handoff_spool", default=None,
+                    help="lazy snapshot hand-off: also validate pre-durable "
+                         "param snapshots a trainer spills to this "
+                         "directory (the trainer's --handoff-spool); the "
+                         "--ckpts_dir watcher stays the fallback")
+    # -- convergence control plane (repro_torch.control) ---------------------
+    ap.add_argument("--keep_top_k", type=int, default=0,
+                    help="quality-aware checkpoint GC: after each "
+                         "validation keep only the top-k checkpoints by the "
+                         "control metric plus anything not yet validated "
+                         "(0 = GC disabled, keep everything)")
+    ap.add_argument("--ema", type=float, default=0.0,
+                    help="EMA smoothing factor for the selection metric "
+                         "(0 = raw values)")
+    ap.add_argument("--early_stop", action="store_true",
+                    help="asynchronous early stopping: when the control "
+                         "metric plateaus, an atomic STOP marker file is "
+                         "published for the trainer to poll")
+    ap.add_argument("--early_stop_metric", default=None,
+                    help="control-plane metric spec (default: first "
+                         "--metrics entry; AverageRank is minimized, others "
+                         "maximized); 'task:metric' or a weighted "
+                         "'0.5*a:MRR@10 + 0.5*b:MRR@10' aggregate")
+    ap.add_argument("--early_stop_patience", type=int, default=3,
+                    help="evaluations without >= --early_stop_min_delta "
+                         "improvement before stopping")
+    ap.add_argument("--early_stop_min_delta", type=float, default=0.0,
+                    help="improvement below this counts as a plateau "
+                         "evaluation")
+    ap.add_argument("--early_stop_window", type=int, default=0,
+                    help="history-based overfit detector window (>= 3); it "
+                         "needs a train-loss feed, so it only acts "
+                         "in-process (repro_torch.launch.train), not in "
+                         "this validator-only CLI (0 = off)")
+    ap.add_argument("--stop_file", default=None,
+                    help="STOP marker path (default: <logging_dir>/STOP)")
+    ap.add_argument("--ensemble_top_k", type=int, default=0,
+                    help="after validation ends, greedy-soup the top-k "
+                         "checkpoints by the control metric into a virtual "
+                         "checkpoint, commit it and validate it through "
+                         "the normal path (0 = off)")
     for name, unused in _NOT_PORTED.items():
         if unused is False:
             ap.add_argument(f"--{name}", action="store_true",
@@ -247,6 +287,27 @@ def main(argv=None) -> int:
     if chosen_sampler in ("run_topk", "rerank_topk") and not args.run_file:
         ap.error(f"sampler {chosen_sampler!r} subsets from a baseline run "
                  "(--depth picks its depth); pass --run_file")
+
+    # the control metric is checked before any corpus IO: a typo would
+    # otherwise raise inside every controller call
+    cmetric = None
+    if args.keep_top_k or args.early_stop or args.ensemble_top_k:
+        from repro_torch.control import MetricSpec
+        cmetric = args.early_stop_metric or args.metrics[0]
+        computed = set(args.metrics) | ({"AverageRank"}
+                                        if args.mode == "average_rank"
+                                        else set())
+        # one task named "default": bare and default-qualified keys
+        computed |= {f"default:{m}" for m in set(computed)}
+        try:
+            spec_keys = MetricSpec.parse(cmetric).keys()
+        except ValueError as e:
+            ap.error(str(e))
+        missing = [k for k in spec_keys if k not in computed]
+        if missing:
+            ap.error(f"--early_stop_metric {cmetric!r} references "
+                     f"{missing} not computed by this run; choose from "
+                     f"{sorted(computed)}")
 
     from repro_torch.core.metrics import read_trec_qrels, read_trec_run
     from repro_torch.core.reporting import CSVLogger, JSONLLogger, MultiLogger
@@ -305,13 +366,49 @@ def main(argv=None) -> int:
             loggers.append(JSONLLogger(os.path.join(
                 logdir, f"{args.run_name}_metrics.jsonl")))
     os.makedirs(logdir, exist_ok=True)
+
+    control = None
+    if cmetric is not None:
+        from repro_torch.control import ControlConfig, ControlPlane, \
+            metric_mode
+        ccfg = ControlConfig(
+            metric=cmetric, mode=metric_mode(cmetric),
+            keep_top_k=args.keep_top_k, ema=args.ema,
+            early_stop=args.early_stop,
+            patience=args.early_stop_patience,
+            min_delta=args.early_stop_min_delta,
+            overfit_window=args.early_stop_window,
+            ensemble_top_k=args.ensemble_top_k)
+        stop_path = None
+        if args.early_stop:
+            stop_path = args.stop_file or os.path.join(logdir, "STOP")
+            if os.path.exists(stop_path):
+                # a previous session's verdict: a trainer polling this path
+                # must not halt before this session decides anything
+                os.remove(stop_path)
+        control = ControlPlane(
+            args.ckpts_dir, ccfg, stop_path=stop_path,
+            event_path=os.path.join(logdir, f"{args.run_name}_control.jsonl"),
+            telemetry=tel)
+
+    snapshots = None
+    if args.handoff_spool:
+        from repro_torch.handoff import SnapshotSpool
+        snapshots = SnapshotSpool(args.handoff_spool)
     validator = AsyncValidator(
         args.ckpts_dir, suite, logger=MultiLogger(*loggers),
         policy=BudgetPolicy() if args.policy == "budget"
         else Policy(kind=args.policy, stride=args.stride),
-        max_num_valid=args.max_num_valid,
+        max_num_valid=args.max_num_valid, controller=control,
         ledger_path=os.path.join(logdir, f"{args.run_name}_ledger.jsonl"),
-        poll_interval_s=args.poll_interval, telemetry=tel)
+        poll_interval_s=args.poll_interval, telemetry=tel,
+        snapshots=snapshots)
+    if control is not None:
+        # restart: warm the ranking from the previous session's rows (old
+        # steps are never validated again, and a cold selector would GC
+        # the previous session's best checkpoints)
+        control.rehydrate(validator.ledger.rows(),
+                          expected_tasks=suite.task_names)
 
     if args.watch:
         print("[asyncval] watching", args.ckpts_dir, file=sys.stderr)
@@ -322,6 +419,12 @@ def main(argv=None) -> int:
                 for r in validator.results[len(validator.results) - n:]:
                     print(f"[asyncval] step {r.step}: {r.log_metrics} "
                           f"({r.timings['total_s']:.1f}s)")
+                if control is not None and control.stopped and n == 0:
+                    # the STOP marker is out and the backlog is drained
+                    print("[asyncval] early stop "
+                          f"({control.earlystop.reason}) — exiting watch",
+                          file=sys.stderr)
+                    break
                 time.sleep(args.poll_interval)
         except KeyboardInterrupt:
             pass
@@ -330,6 +433,24 @@ def main(argv=None) -> int:
         for r in validator.results:
             print(f"[asyncval] step {r.step}: {r.log_metrics} "
                   f"({r.timings['total_s']:.1f}s)")
+    if control is not None and args.ensemble_top_k:
+        from repro_torch.control import MetricSpec
+        cspec = MetricSpec.parse(control.cfg.metric)
+        # scoring passes write no TREC run: each soup candidate would
+        # overwrite the run file of step 0
+        vstep = control.build_ensemble(
+            lambda p: cspec.value(
+                suite.validate_params(p, write_runs=False).metrics),
+            template=validator.worker.template)
+        if vstep is not None:
+            # scored through the normal path, past the watcher policy
+            validator.validate_step(vstep)
+            res = next((r for r in validator.results if r.step == vstep),
+                       None)
+            if res is not None:
+                print(f"[asyncval] ensemble step {vstep} "
+                      f"(soup of {control.ensemble_members}): "
+                      f"{res.log_metrics}")
     for step, err in validator.errors:
         print(f"[asyncval] step {step} failed: {err}", file=sys.stderr)
     _obs_finish(args, tel)

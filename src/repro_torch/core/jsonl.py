@@ -2,9 +2,10 @@
 
 The validator ledger and the control event log append one fsync'd JSON line
 per record.  A process killed mid-append (crash / power loss) leaves a torn
-FINAL line; :func:`read_jsonl_tolerant` drops exactly that line, and
-:func:`append_jsonl_atomic` cuts it away before the next append (a clean
-line instead of gluing onto the fragment).  Loading never
+FINAL line; :func:`read_jsonl_tolerant` drops exactly that line and
+reports its byte offset, so the owning writer can cut it away before its
+next append (:func:`truncate_torn_tail`; :func:`append_jsonl_atomic` does it
+itself): a clean line instead of gluing onto the fragment.  Loading never
 mutates the file — an offline audit reading a LIVE log must not race the
 writer's in-flight append by truncating what merely looks torn.  A
 malformed line anywhere ELSE means real corruption (bit rot, concurrent
@@ -31,9 +32,9 @@ def read_jsonl_tolerant(path: str, *,
 
     Returns ``(records, torn_offset)`` — ``torn_offset`` is the byte offset
     of the dropped torn final line (None when the file is clean).  Readers
-    leave the file untouched; :func:`append_jsonl_atomic` cuts the torn tail
-    before the next append.  ``kind`` names the record type in error
-    messages."""
+    leave the file untouched; the single writer that owns the file passes
+    it to :func:`truncate_torn_tail` before its first append.  ``kind``
+    names the record type in error messages."""
     with open(path, "rb") as f:
         raw = f.read()
     offset, lines = 0, []                # (lineno, byte offset, line)
@@ -54,6 +55,15 @@ def read_jsonl_tolerant(path: str, *,
                 f"corrupt {kind} at {path}:{lineno} (only a torn FINAL "
                 f"line is recoverable)")
     return out, None
+
+
+def truncate_torn_tail(path: str, torn_offset: Optional[int]) -> None:
+    """Writer-side repair: cut the torn tail reported by
+    :func:`read_jsonl_tolerant` so the next append starts a clean line.
+    No-op when the load was clean."""
+    if torn_offset is not None:
+        with open(path, "r+b") as f:
+            f.truncate(torn_offset)
 
 
 def append_jsonl_atomic(path: str, records: Iterable[dict]) -> int:

@@ -73,6 +73,9 @@ class ValidationResult:
     engine: str = ""
     score_dtype: str = "f32"
     task: str = "default"
+    # "snapshot" when scored from a pre-durable hand-off snapshot, "" when
+    # restored from the durable checkpoint; ledgered only when "snapshot"
+    handoff: str = ""
 
 
 @dataclasses.dataclass
@@ -154,6 +157,11 @@ class SuiteResult:
     @property
     def score_dtype(self) -> str:
         names = {r.score_dtype for r in self.tasks.values()}
+        return names.pop() if len(names) == 1 else ",".join(sorted(names))
+
+    @property
+    def handoff(self) -> str:
+        names = {r.handoff or "durable" for r in self.tasks.values()}
         return names.pop() if len(names) == 1 else ",".join(sorted(names))
 
 

@@ -8,18 +8,21 @@ steps.
 
 This is the solo path of ``repro/core/validator.py``, with its telemetry
 hooks (spans, the checkpoint-to-verdict histogram; observation only: the
-ledger's bytes are the same with telemetry on and off); the fleet work
-queue, the snapshot hand-off and the control plane wait for later slices
-of the port.  Started as a thread (:meth:`AsyncValidator.start`) on a CUDA
-device, the validation loop runs on its own CUDA stream, so its kernels can
-overlap a trainer's on the same card and its clock reads wait for its own
-work only.
+ledger's bytes are the same with telemetry on and off), the control-plane
+hook (``controller=``, :class:`repro_torch.control.ControlPlane`) and the
+lazy snapshot hand-off (``snapshots=``, :mod:`repro_torch.handoff`); the
+fleet work queue waits for a later slice of the port.  Started as a thread
+(:meth:`AsyncValidator.start`) on a CUDA device, the validation loop runs
+on its own CUDA stream, so its kernels (and the upload of a snapshot's or
+a restored checkpoint's params) can overlap a trainer's on the same card
+and its clock reads wait for its own work only.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import os
 import threading
 import time
@@ -89,11 +92,13 @@ class ValidationLedger:
 
     Schema v2: one JSONL row per (step, task) with the keys ``step``,
     ``task``, ``metrics``, ``timings``, ``subset_size``, ``engine`` and
-    ``score_dtype`` — the JAX package's rows, so either package's tools can
-    read the other's ledger.  Rows without ``"task"`` (schema v1) load as
-    task ``"default"``; records with a ``"kind"`` key (fleet claim records)
-    are skipped.  A torn final line (a crash mid-append) is dropped on load;
-    a torn line elsewhere raises.  ``expected_tasks`` defines completion: a
+    ``score_dtype``, plus ``"handoff": "snapshot"`` on a row scored from a
+    pre-durable snapshot (durable rows omit the key) — the JAX package's
+    rows, so either package's tools can read the other's ledger.  Rows
+    without ``"task"`` (schema v1) load as task ``"default"``; records
+    with a ``"kind"`` key (fleet claim records) are skipped.  A torn final
+    line (a crash mid-append) is dropped on load; a torn line elsewhere
+    raises.  ``expected_tasks`` defines completion: a
     step counts as validated only when every expected task has a row.
     With ``telemetry``, each append runs inside a ``recorded`` span; the
     bytes written are the same."""
@@ -158,10 +163,15 @@ class ValidationLedger:
         atomic, fsync'd write."""
         results = list(result.tasks.values()) \
             if isinstance(result, SuiteResult) else [result]
-        recs = [{"step": r.step, "task": str(r.task),
-                 "metrics": r.metrics, "timings": r.timings,
-                 "subset_size": r.subset_size, "engine": r.engine,
-                 "score_dtype": str(r.score_dtype)} for r in results]
+        recs = []
+        for r in results:
+            rec = {"step": r.step, "task": str(r.task),
+                   "metrics": r.metrics, "timings": r.timings,
+                   "subset_size": r.subset_size, "engine": r.engine,
+                   "score_dtype": str(r.score_dtype)}
+            if getattr(r, "handoff", "") == "snapshot":
+                rec["handoff"] = "snapshot"
+            recs.append(rec)
         tel = self.telemetry
         with self._lock:
             for rec in recs:
@@ -179,16 +189,24 @@ class ValidatorWorker:
     """Executes whole-checkpoint validation: restore -> every suite task ->
     ledger rows.  The params are restored with ``template`` (default:
     ``{"params": <the suite encoder's parameter shapes>}``, the layout the
-    trainer saves) and cached, so a step restores once."""
+    trainer saves) and cached, so a step restores once.
+
+    ``snapshots`` (a :class:`~repro_torch.handoff.SnapshotChannel` or
+    :class:`~repro_torch.handoff.SnapshotSpool`: anything with
+    ``get(step)``) is consulted before the durable restore, so a step can be
+    scored while its ``ckpt.save`` is still running; its rows then carry
+    ``handoff="snapshot"``."""
 
     def __init__(self, ckpt_root: str, pipeline, *,
                  ledger: Optional[ValidationLedger] = None,
                  logger: Optional[BaseLogger] = None,
                  params_extractor: Callable = params_from_checkpoint,
                  template: Optional[dict] = None,
-                 engine: Any = None, telemetry=None, max_errors: int = 256):
+                 engine: Any = None, telemetry=None, max_errors: int = 256,
+                 snapshots: Any = None):
         self.ckpt_root = ckpt_root
         self.pipeline = pipeline
+        self.snapshots = snapshots
         self.logger = logger
         self.params_extractor = params_extractor
         self.template = template if template is not None \
@@ -208,18 +226,47 @@ class ValidatorWorker:
                 self.ledger.telemetry = telemetry
         self._params_step: Optional[int] = None
         self._params: Any = None
+        self._params_handoff = ""   # "snapshot" | "" for the cached params
 
     def load_params(self, step: int):
         if self._params_step != step:
-            state, _ = ckpt.restore(self.ckpt_root, step,
-                                    template=self.template)
-            self._params = self.params_extractor(state)
+            snap = self.snapshots.get(step) \
+                if self.snapshots is not None else None
+            if snap is not None:
+                # the tree the durable restore would give, from host memory
+                self._params = self.params_extractor(snap.state())
+                self._params_handoff = "snapshot"
+            else:
+                state, _ = ckpt.restore(self.ckpt_root, step,
+                                        template=self.template)
+                self._params = self.params_extractor(state)
+                self._params_handoff = ""
             self._params_step = step
         return self._params
 
+    @property
+    def last_handoff(self) -> str:
+        """``"snapshot"`` when the cached params came from the hand-off,
+        ``""`` for a durable restore."""
+        return self._params_handoff
+
     def invalidate_params_cache(self) -> None:
+        """Drop the cached params (on a failed validation: the cached tree
+        may be the fault, and the retry must resolve its source again)."""
         self._params_step = None
         self._params = None
+        self._params_handoff = ""
+
+    def _stamp(self, result):
+        """Mark every row of ``result`` with the hand-off route of its
+        params (no-op for a durable restore: the rows stay byte-identical)."""
+        if not self._params_handoff:
+            return result
+        if isinstance(result, SuiteResult):
+            return dataclasses.replace(result, tasks={
+                n: dataclasses.replace(r, handoff=self._params_handoff)
+                for n, r in result.tasks.items()})
+        return dataclasses.replace(result, handoff=self._params_handoff)
 
     def log_result(self, result) -> None:
         if self.logger is None:
@@ -236,8 +283,8 @@ class ValidatorWorker:
         failure with nothing recorded."""
         params = self.load_params(step)
         try:
-            result = self.pipeline.validate_params(params, step=step,
-                                                   engine=self.engine)
+            result = self._stamp(self.pipeline.validate_params(
+                params, step=step, engine=self.engine))
         except BaseException:
             self.invalidate_params_cache()
             raise
@@ -276,7 +323,18 @@ class AsyncValidator:
     and retried on a later poll, up to ``max_retries`` times: validation
     must never take training down.  ``telemetry`` (a
     :class:`repro_torch.obs.Telemetry`) reaches the watcher, the worker,
-    the ledger and, when the suite's config has none, the suite's engines."""
+    the ledger and, when the suite's config has none, the suite's engines.
+
+    ``controller`` (an object with ``on_result(result, validator)``, e.g.
+    :class:`repro_torch.control.ControlPlane`) runs after every ledger
+    append, on the validator's thread; its faults go to ``errors`` and
+    never stop validation.  ``snapshots`` (a
+    :class:`repro_torch.handoff.SnapshotChannel` or ``SnapshotSpool``):
+    pending snapshots are validated before the watcher poll, a publish
+    wakes the loop at once, a snapshot that fails validation is discarded
+    (the retry restores the durable checkpoint), and a snapshot verdict
+    marks the step seen, so the watcher's later discovery of its
+    checkpoint validates nothing twice."""
 
     def __init__(self, ckpt_root: str, pipeline, *,
                  logger: Optional[BaseLogger] = None,
@@ -287,11 +345,17 @@ class AsyncValidator:
                  params_extractor: Callable = params_from_checkpoint,
                  template: Optional[dict] = None,
                  engine: Any = None, max_retries: int = 2,
-                 telemetry=None):
+                 controller: Any = None,
+                 telemetry=None, snapshots: Any = None):
         self.ckpt_root = ckpt_root
         self.telemetry = telemetry
         self.watcher = CheckpointWatcher(ckpt_root, policy=policy,
                                          telemetry=telemetry)
+        self.snapshots = snapshots
+        self._wake = threading.Event()
+        if snapshots is not None and hasattr(snapshots, "subscribe"):
+            snapshots.subscribe(lambda step: self._wake.set())
+        self.controller = controller
         self.max_num_valid = max_num_valid
         expected = tuple(getattr(pipeline, "task_names", ()) or ("default",))
         if telemetry is not None:
@@ -305,7 +369,8 @@ class AsyncValidator:
             ledger=ValidationLedger(ledger_path, expected_tasks=expected,
                                     telemetry=telemetry),
             logger=logger, params_extractor=params_extractor,
-            template=template, engine=engine, telemetry=telemetry)
+            template=template, engine=engine, telemetry=telemetry,
+            snapshots=snapshots)
         self.poll_interval_s = poll_interval_s
         self.results: List[ValidationResult] = []
         self._stop = threading.Event()
@@ -319,7 +384,23 @@ class AsyncValidator:
         return self.worker.ledger
 
     def validate_pending(self) -> int:
-        return self._validate(self.watcher.poll())
+        n = self._validate(self._snapshot_pending())
+        return n + self._validate(self.watcher.poll())
+
+    def _snapshot_pending(self) -> List[int]:
+        """Claim the hand-off's unvalidated snapshots, in publish order;
+        ledgered steps are marked validated without a claim, so the channel
+        can retire them once durable."""
+        if self.snapshots is None:
+            return []
+        steps = []
+        for step in self.snapshots.pending():
+            if step in self.ledger:
+                self.snapshots.mark_validated(step)
+                continue
+            if self.snapshots.claim(step) is not None:
+                steps.append(step)
+        return steps
 
     def validate_step(self, step: int) -> int:
         """Validate one committed step now, bypassing the watcher policy
@@ -340,6 +421,10 @@ class AsyncValidator:
                 result = self.worker.run_step(step)
             except Exception as e:      # validation must never kill training
                 self.errors.append((step, repr(e)))
+                if self.snapshots is not None:
+                    # drop the (possibly poisoned) host copy: the retry
+                    # restores the durable checkpoint once committed
+                    self.snapshots.discard(step)
                 n_fail = self._failures.get(step, 0) + 1
                 self._failures[step] = n_fail
                 if n_fail <= self.max_retries:
@@ -348,10 +433,21 @@ class AsyncValidator:
                     self.watcher.mark_seen(step)
                 continue
             self._failures.pop(step, None)
+            if self.snapshots is not None \
+                    and self.worker.last_handoff == "snapshot":
+                # free the snapshot (once durable) and consume the step's
+                # later watcher discovery
+                self.snapshots.mark_validated(step)
+                self.watcher.mark_seen(step)
             self.results.append(result)
             self.watcher.policy.observe_latency(
                 float(result.timings.get("total_s", 0.0)))
             self.worker.log_result(result)
+            if self.controller is not None:
+                try:
+                    self.controller.on_result(result, self)
+                except Exception as e:
+                    self.errors.append((step, f"controller: {e!r}"))
             n += 1
         return n
 
@@ -372,19 +468,23 @@ class AsyncValidator:
         def loop():
             with self._own_stream():
                 while not self._stop.is_set():
+                    self._wake.clear()
                     self.validate_pending()
                     if self.max_num_valid is not None \
                             and len(self.results) >= self.max_num_valid:
                         return
-                    self._stop.wait(self.poll_interval_s)
+                    # a snapshot publish (or stop) cuts the sleep short
+                    self._wake.wait(self.poll_interval_s)
 
         self._thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()
 
     def stop(self, *, drain: bool = True,
              timeout: Optional[float] = None) -> None:
-        """Signal shutdown; with ``drain`` validate whatever is committed."""
+        """Signal shutdown; with ``drain`` validate whatever is committed
+        (and whatever snapshot is pending)."""
         self._stop.set()
+        self._wake.set()                # unblock a loop mid-sleep
         if self._thread is not None:
             self._thread.join(timeout=timeout)
             if self._thread.is_alive():

@@ -10,9 +10,14 @@ other's checkpoints) and never waits for validation.  The validator
 The step is eager PyTorch: ``torch.autograd.grad`` of the loss over the
 parameter leaves, then the functional optimizer (:mod:`repro_torch.train.
 optim`), which returns new tensors, so :class:`~repro_torch.ckpt.
-checkpoint.AsyncSaver` can copy a step's state while later steps run.  The
-control plane's ``stop_file`` and the hand-off ``snapshots`` are not ported
-yet (``ROADMAP.md`` A8, A9) and raise when set.
+checkpoint.AsyncSaver` can copy a step's state while later steps run.
+
+Two couplings to the validator's side, both optional: ``stop_file``, the
+control plane's STOP marker, polled between steps (training halts
+asynchronously, it never waits on validation), and ``snapshots``, a
+:class:`~repro_torch.handoff.SnapshotChannel` that receives each
+checkpoint's params as a host snapshot the moment the saver's
+device-to-host copy lands, before the durable write.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.control.earlystop import stop_requested
 from repro_torch.core import pytree
+from repro_torch.handoff import ParamSnapshot
 from repro_torch.train.optim import Optimizer
 
 
@@ -37,10 +44,12 @@ class TrainerConfig:
     log_every: int = 10
     async_save: bool = True
     grad_accum: int = 1
-    # not ported yet: the control plane's STOP marker (A8) and the lazy
-    # snapshot hand-off (A9); setting either raises NotImplementedError
+    # the control plane's STOP marker, polled every stop_poll_every steps
     stop_file: Optional[str] = None
     stop_poll_every: int = 1
+    # lazy snapshot hand-off (repro_torch.handoff.SnapshotChannel): each
+    # saved step's params are published as a host snapshot; None keeps the
+    # durable-only hand-off
     snapshots: Any = None
 
 
@@ -111,14 +120,6 @@ class Trainer:
                  batch_iter: Callable[[int], Any],
                  logger: Optional[Any] = None,
                  telemetry=None):
-        if cfg.stop_file:
-            raise NotImplementedError(
-                "TrainerConfig.stop_file (the control plane's STOP marker) "
-                "is not ported yet (ROADMAP A8)")
-        if cfg.snapshots is not None:
-            raise NotImplementedError(
-                "TrainerConfig.snapshots (the lazy snapshot hand-off) is not "
-                "ported yet (ROADMAP A9)")
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -160,19 +161,39 @@ class Trainer:
         self.opt_state = state["opt_state"]
         self.step = int(extra.get("step", step))
 
+    def _publish_snapshot(self, step, host_tree):
+        """The async saver's host-copy hook (on its background thread): hand
+        the validator the params before the durable write starts.  Only the
+        params travel (the validator reads nothing else), so the optimizer
+        state's pinned buffers are not held by the ring."""
+        self.cfg.snapshots.publish(ParamSnapshot.from_tree(
+            step, {"params": host_tree["params"]}))
+
     def _save(self):
         if not self.cfg.ckpt_dir:
             return
         state = {"params": self.params, "opt_state": self.opt_state}
         extra = {"step": self.step, "wall_time": time.time()}
+        ch = self.cfg.snapshots
         tel = self.telemetry
         if tel is not None:
-            # first edge of the checkpoint-to-verdict latency
+            # first edge of the checkpoint-to-verdict latency, whichever
+            # hand-off route wins
             tel.mark("produced", self.step)
         if self.cfg.async_save:
-            self.saver.save(self.cfg.ckpt_dir, self.step, state, extra)
+            self.saver.save(
+                self.cfg.ckpt_dir, self.step, state, extra,
+                on_host_copy=self._publish_snapshot if ch is not None
+                else None,
+                on_durable=ch.mark_durable if ch is not None else None,
+                on_failure=ch.mark_failed if ch is not None else None)
         else:
             ckpt.save(self.cfg.ckpt_dir, self.step, state, extra)
+            if ch is not None:
+                # already durable: publish after the blocking save, so the
+                # sync mode keeps one code path downstream
+                self._publish_snapshot(self.step, state)
+                ch.mark_durable(self.step)
         self._last_saved_step = self.step
         if tel is not None:
             # async saves commit later; the COMMIT marker's mtime remains
@@ -180,9 +201,24 @@ class Trainer:
             tel.event("produced", step=self.step,
                       async_save=self.cfg.async_save)
 
+    def _stop_requested(self) -> bool:
+        """Poll the control plane's STOP marker (async early stopping)."""
+        if not self.cfg.stop_file:
+            return False
+        if self.step % max(self.cfg.stop_poll_every, 1) != 0:
+            return False
+        verdict = stop_requested(self.cfg.stop_file)
+        if verdict is None:
+            return False
+        self.stop_verdict = verdict
+        return True
+
     def run(self, on_metrics: Optional[Callable[[int, dict], None]] = None):
         history = []
         while self.step < self.cfg.total_steps:
+            if self._stop_requested():
+                self.stopped_early = True
+                break
             batch = self.batch_iter(self.step)
             self.params, self.opt_state, metrics = self._step_fn(
                 self.params, self.opt_state, batch)
@@ -201,5 +237,8 @@ class Trainer:
             if self.step % self.cfg.ckpt_every == 0 \
                     or self.step == self.cfg.total_steps:
                 self._save()
+        if self.stopped_early and self.cfg.ckpt_dir \
+                and self._last_saved_step != self.step:
+            self._save()    # commit the final state for selection / soups
         self.saver.wait()
         return history

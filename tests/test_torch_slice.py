@@ -123,9 +123,11 @@ def test_port_cli_matches_jax_cli(filespace, tmp_path, score_dtype):
 
 def test_unported_flags_raise(filespace, tmp_path):
     base = _args(filespace, tmp_path, "torch_encoder") + ["--device", "cpu"]
-    for extra in (["--serve"], ["--keep_top_k", "2"], ["--worker"],
-                  ["--handoff_spool", "x"], ["--stop_file", "x"],
-                  ["--early_stop"], ["--ensemble_top_k", "2"],
+    # the control plane's and the hand-off's flags are ported (tests/
+    # test_torch_control_integration.py); serving, the fleet and
+    # --scan_window not
+    for extra in (["--serve"], ["--serve_k", "5"], ["--worker"],
+                  ["--worker_id", "w0"], ["--lease_ttl", "4"],
                   ["--scan_window", "4"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             torch_main(base + extra)

@@ -468,10 +468,27 @@ def test_port_trainer_resumes_from_reference_checkpoint(smoke, tmp_path):
 
 
 def test_trainer_unported_options_raise(tmp_path):
-    for kw in ({"stop_file": str(tmp_path / "STOP")}, {"snapshots": object()}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Trainer(TrainerConfig(**kw), loss_fn, optim.adamw(1e-2),
-                    init_params(), batch_for)
+    """``stop_file`` and ``snapshots`` (once not ported) now work: a
+    present STOP marker halts the trainer before its first step, and each
+    save publishes the params to the snapshot channel and marks the step
+    durable."""
+    from repro_torch.control import write_stop_marker
+    from repro_torch.handoff import SnapshotChannel
+    stop = str(tmp_path / "STOP")
+    write_stop_marker(stop, {"reason": "test", "step": 0})
+    tr = Trainer(TrainerConfig(total_steps=4, stop_file=stop), loss_fn,
+                 optim.adamw(1e-2), init_params(), batch_for)
+    assert tr.run() == [] and tr.stopped_early and tr.step == 0
+    assert tr.stop_verdict == {"reason": "test", "step": 0}
+    ch = SnapshotChannel(capacity=4)
+    tr = Trainer(TrainerConfig(total_steps=4, ckpt_every=2, log_every=2,
+                               ckpt_dir=str(tmp_path / "ck"), snapshots=ch),
+                 loss_fn, optim.adamw(1e-2), init_params(), batch_for)
+    tr.run()
+    assert ch.pending() == [2, 4] and ch.is_durable(2) and ch.is_durable(4)
+    assert pytree.tree_map(lambda t: tuple(t.shape),
+                           ch.get(4).state()["params"]) == \
+        pytree.tree_map(lambda t: tuple(t.shape), tr.params)
 
 
 # ---------------------------------------------------------------------------
@@ -568,9 +585,33 @@ def test_launch_train_sync_and_async_validate_every_checkpoint(tmp_path):
     ("early_stop_patience", 2), ("overfit_window", 3), ("keep_top_k", 2),
     ("ensemble_top_k", 2), ("handoff_spool", "x")])
 def test_launch_train_unported_flags_raise(tmp_path, flag, value):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tlaunch.main(_launch_args(tmp_path, False, **{flag: value}))
-    assert not (tmp_path / "ckpts").exists()
+    """The control plane's and the hand-off's flags (once not ported) now
+    run: every checkpoint is validated, and each flag does what the
+    reference's does."""
+    # three checkpoints: steps 5, 10, 15
+    args = _launch_args(tmp_path, False, steps=15)
+    if flag == "handoff_spool":
+        args += ["--handoff", "--handoff-spool", str(tmp_path / value)]
+    else:
+        args += [f"--{flag.replace('_', '-')}", str(value)]
+    res = tlaunch.main(args)
+    assert not res["errors"]
+    steps = [r["step"] for r in _ledger_rows(tmp_path)]
+    control = flag in ("early_stop_patience", "keep_top_k", "ensemble_top_k")
+    assert os.path.exists(tmp_path / "control.jsonl") == control
+    if flag == "early_stop_patience" and res["stopped_early"]:
+        assert res["stop_verdict"]["reason"] == "plateau"
+    if not res["stopped_early"]:
+        assert steps[:3] == [5, 10, 15]
+    if flag == "keep_top_k":
+        assert len(res["kept_checkpoints"]) == value
+    if flag == "ensemble_top_k":
+        assert res["ensemble"]["step"] == steps[-1] == 16
+    if flag == "handoff_spool":
+        # the spool mirrored the ring; validated + durable snapshots retired
+        assert os.path.isdir(tmp_path / value)
+        assert not [n for n in os.listdir(tmp_path / value)
+                    if n.startswith("snap_")]
 
 
 def test_launch_train_default_device_is_cuda(tmp_path):
