@@ -8,6 +8,9 @@
                                          # decode_32k decode step
     python3 chip_smoke.py --train-only   # the kernel phases, then only the
                                          # train phase (5c) on its data
+    python3 chip_smoke.py --serve-only   # the kernel phases, then the main
+                                         # phase (5) and the serve phase
+                                         # (5d) on its checkpoints
 
 Phases, each printing one JSON line:
 
@@ -101,6 +104,37 @@ Phases, each printing one JSON line:
                 touching a file; (f) ``fidelity_report`` of the subset
                 ledger against the full-corpus ledger (MRR@10) over the two
                 checkpoints and a third.
+  5d. serve   — the retrieval serving tier (``repro_torch.serve``) on the
+                main phase's data and checkpoints, all through the
+                topk_mips kernels (``impl="cuda"``): (a) ``python -m
+                repro_torch.launch.serve`` one-shot (f32, k=10, micro-batches
+                of 8) and ``repro_torch.core.cli --serve --keep_top_k 1`` on
+                a copy of the checkpoints: exit 0, one swap event, the
+                served step the selector's pick and kept by GC, launches = a
+                window per micro-batch plus the verify's canary (plus the
+                validation's chunks); (b) per dtype (f32, bf16, int8) an
+                index of the first checkpoint answering all 256 queries
+                (k=100) through ``QueryService.answer`` against the main
+                phase's ledger and TREC run (at most 1% of lists, 1e-4 on
+                metrics) and bit-equal to ``retrieve_run(impl="cuda")`` on
+                the same operands; (c) under deterministic algorithms, 8
+                client threads submitting the 256 queries in a loop while
+                the promoter's background loop swaps between the two
+                checkpoints 3 times: nothing dropped, rejected or timed
+                out, every response bit-equal to its step's precomputed
+                answer, the replayed timeline equal to the swaps; latency
+                p50 / p99 with and without a build running, queries per
+                second, build and promote seconds, occupancy; (d) an index
+                of MS MARCO passage's size (8,841,823 seeded unit rows,
+                D=768, drawn on the card) at f32, int8 over it, then bf16:
+                a micro-batch of 8 against ``topk_exact`` on the card (same
+                ids, scores within 1e-5), 50 micro-batches through
+                ``answer`` (per batch: CUDA events around
+                ``ServingIndex.topk``, wall, launches = windows), the
+                kernels alone (``ms``, profiler ``device_ms`` by kernel, the
+                window loop's host time), the wrapper (int8: with the corpus
+                quantization, also alone), the bytes bound and
+                ``torch.topk(q @ c.T, 10)``.
   5c. train   — the trainer and the asynchronous train -> validate loop
                 (paper Fig. 1) on the main phase's data: full-width
                 dr-bert-base, f32, AdamW (warmup to 3e-5, temperature 0.05),
@@ -160,7 +194,8 @@ Phases, each printing one JSON line:
 
 Kernel launches are counted only while a path runs (the main path for
 topk_mips, also read over each run of the train phase, the subset phase's
-materialized runs for its whole-corpus rows,
+materialized runs for its whole-corpus rows, the serve phase's 50 timed
+micro-batches at MS MARCO's size for its ``_serve`` rows,
 the LM phase's ``lm_loss`` for flash attention, its ``serve_batch`` calls
 for decode attention: the three timed bf16 calls and the f32 one), with
 every count set to 0 just before it.  Then a
@@ -882,7 +917,7 @@ def main_phase(device, ds):
             "--ckpts_dir", os.path.join(work, "ckpts"),
             "--qrel_file", os.path.join(work, "qrels.txt"),
             "--q_max_len", "32", "--p_max_len", "128",
-            "--metrics", "MRR@10", "Recall@100",
+            "--metrics", "MRR@10", "Recall@100", "--write_run",
             "--impl", impl, "--score_dtype", dt, "--chunk_size", str(chunk),
             "--batch_size", "256", "--output_dir", out])
         seconds = time.perf_counter() - t0
@@ -1177,6 +1212,573 @@ def subset_phase(device, ds, main_results):
     emit({"phase": "subset", "ok": True,
           "seconds": time.perf_counter() - t_phase})
     return mat_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the retrieval serving tier on the main phase's checkpoints
+# ---------------------------------------------------------------------------
+
+# served results per query and the query micro-batch: the CLIs' defaults
+SERVE_K, SERVE_BATCH = 10, 8
+# the hot-swap part: client threads, and swaps between the two checkpoints
+# after the first install
+SERVE_CLIENTS, SERVE_SWAPS = 8, 3
+# MS MARCO passage's corpus (the paper's own example), at dr-bert-base's
+# width; timed micro-batches per dtype
+MSMARCO_N, MSMARCO_BATCHES = 8_841_823, 50
+SERVE_DTYPES = ("f32", "bf16", "int8")
+
+
+def serve_spec():
+    """The CLIs' ``--arch dr-bert-base`` encoder: full width, on the card."""
+    from repro_torch.configs import dr_bert_base
+    from repro_torch.models.biencoder import biencoder_spec
+    return biencoder_spec(dr_bert_base.full_config(), q_max_len=32,
+                          p_max_len=128, device="cuda")
+
+
+def serve_config(dt, k):
+    """The main phase's scoring and token-store geometry (chunks of 1024
+    corpus rows, 256 queries a batch) at ``score_dtype`` ``dt``."""
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(k=k, score_dtype=dt, impl="cuda", batch_size=256,
+                       chunk_size=1024, max_batch=SERVE_BATCH)
+
+
+def serve_windows(device, n, k):
+    from repro_torch.kernels.topk_mips import ops
+    lib = ops._lib(device)
+    return len(ops._windows(n, k, 0, lib.cols, lib.max_cand))
+
+
+def percentile(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))] \
+        if xs else None
+
+
+def serve_phase(device, ds, main_results):
+    """(a) the entry points, (b) parity with the validator per dtype, (c)
+    hot-swap under load, (d) micro-batches against an MS MARCO-sized index.
+    Returns the `_serve` rows of the kernels line (part d)."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    steps = [r["step"] for r in main_results[("cuda", "f32")]]
+    spec = serve_spec()
+    params = {s: ckpt.restore(os.path.join(WORK, "ckpts"), s,
+                              template={"params": spec.param_shapes}
+                              )[0]["params"] for s in steps}
+    serve_cli_part(device, steps)
+    serve_parity_part(device, ds, spec, params, steps)
+    serve_swap_part(device, ds, spec, params, steps)
+    rows = msmarco_part(device, ds, spec, params[steps[0]], steps[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "ok": True,
+          "seconds": time.perf_counter() - t_phase})
+    return rows
+
+
+def serve_cli_part(device, steps):
+    """(a) ``python -m repro_torch.launch.serve`` (one-shot, the latest
+    checkpoint) and ``repro_torch.core.cli --serve --keep_top_k 1`` (on a
+    copy of the checkpoints), both at ``--impl cuda`` f32: exit 0, one swap
+    event, the CLI's served step the selector's last pick and still on
+    disk after GC, and the topk_mips launches: a window per micro-batch
+    plus the verify's canary (and the validation's chunks on the CLI)."""
+    import contextlib
+    import io
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core import cli
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import replay_swaps
+    windows = serve_windows(device, N_DOCS, SERVE_K)
+    batches = -(-N_QUERIES // SERVE_BATCH)
+    files = ["--query_file", os.path.join(WORK, "q.jsonl"),
+             "--candidate_dir", os.path.join(WORK, "corpus")]
+    events = os.path.join(WORK, "serve_launch.jsonl")
+    out = io.StringIO()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launch_serve.main(files + [
+            "--ckpts_dir", os.path.join(WORK, "ckpts"), "--impl", "cuda",
+            "--score_dtype", "f32", "--k", str(SERVE_K), "--max_batch",
+            str(SERVE_BATCH), "--batch_size", "256",
+            "--serve_events", events])
+    seconds = time.perf_counter() - t0
+    counts = {k: n for k, n in all_launches().items() if n}
+    check(rc == 0, f"launch.serve returned {rc}")
+    swaps = replay_swaps(events)
+    check(swaps == [{"seq": 0, "step": steps[-1], "prev_step": -1}],
+          f"launch.serve swaps {swaps}")
+    want = {"topk_mips_f32": batches * windows + windows}
+    check(counts == want, f"launch.serve launches {counts}, expected {want}")
+    emit({"phase": "serve", "part": "a", "entry": "repro_torch.launch.serve",
+          "served_step": steps[-1], "launches": counts,
+          "windows_per_call": windows, "micro_batches": batches,
+          "stdout": out.getvalue().strip().splitlines()[-1],
+          "seconds": seconds})
+
+    ckdir = os.path.join(WORK, "ckpts_serve")
+    shutil.copytree(os.path.join(WORK, "ckpts"), ckdir)
+    outdir = os.path.join(WORK, "serve_cli")
+    out = io.StringIO()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(files + [
+            "--ckpts_dir", ckdir,
+            "--qrel_file", os.path.join(WORK, "qrels.txt"),
+            "--q_max_len", "32", "--p_max_len", "128",
+            "--metrics", "MRR@10", "Recall@100", "--impl", "cuda",
+            "--score_dtype", "f32", "--chunk_size", "1024",
+            "--batch_size", "256", "--output_dir", outdir,
+            "--keep_top_k", "1", "--serve", "--serve_k", str(SERVE_K)])
+    seconds = time.perf_counter() - t0
+    counts = {k: n for k, n in all_launches().items() if n}
+    check(rc == 0, f"cli --serve returned {rc}")
+    swaps = replay_swaps(os.path.join(outdir, "asyncval_serve.jsonl"))
+    check(len(swaps) == 1, f"cli --serve swaps {swaps}")
+    served = swaps[0]["step"]
+    with open(os.path.join(outdir, "asyncval_control.jsonl")) as f:
+        selects = [json.loads(line) for line in f if line.strip()]
+    best = [e for e in selects if e["kind"] == "select"][-1]["best_step"]
+    check(served == best, f"served step {served}, the selector's {best}")
+    on_disk = ckpt.list_steps(ckdir)
+    check(on_disk == [served], f"after GC: {on_disk}, served {served}")
+    n_chunks = -(-N_DOCS // 1024)
+    want = {"topk_mips_f32": n_chunks * len(steps) + batches * windows
+            + windows}
+    check(counts == want, f"cli --serve launches {counts}, expected {want}")
+    emit({"phase": "serve", "part": "a", "entry": "repro_torch.core.cli "
+          "--serve", "served_step": served, "selector_best": best,
+          "steps_on_disk": on_disk, "launches": counts,
+          "stdout": [ln for ln in out.getvalue().splitlines()
+                     if ln.startswith("[serve]")], "seconds": seconds})
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def serve_parity_part(device, ds, spec, params, steps):
+    """(b) Per dtype at ``--impl cuda``: an index of the first checkpoint,
+    all 256 queries through ``QueryService.answer`` (k=100, 32
+    micro-batches of 8) against the main phase's ledger and TREC run of
+    that checkpoint (at most 1% of lists and 1e-4 on metrics apart: the
+    validator encodes the queries 256 at a time), and against
+    ``retrieve_run(impl="cuda")`` over the index's embeddings and the same
+    query embeddings (bit-equal: the same kernel on the same operands).
+    At f32, one micro-batch of 8 (k=10) is traced: device time by kernel
+    and the idle share of its wall."""
+    from repro_torch.core.metrics import compute_metrics, read_trec_run
+    from repro_torch.core.retrieval import retrieve_run
+    from repro_torch.data.corpus import pad_batch
+    from repro_torch.serve import IndexBuilder, QueryService
+    step = steps[0]
+    qids = sorted(ds.queries)
+    items = [(q, ds.queries[q]) for q in qids]
+    for dt in SERVE_DTYPES:
+        t0 = time.perf_counter()
+        index = IndexBuilder(spec, ds.corpus, serve_config(dt, 100)).build(
+            params[step], step)
+        svc = QueryService(spec, k=100, max_batch=SERVE_BATCH)
+        svc.install(index)
+        reset_all_launches()
+        resp = svc.answer(items)
+        counts = {k: n for k, n in all_launches().items() if n}
+        served = {r.qid: r.doc_ids for r in resp}
+        scores = {r.qid: r.scores for r in resp}
+        out = os.path.join(WORK, f"out_cuda_{dt}")
+        val = read_trec_run(os.path.join(out, f"asyncval_step{step}.trec"))
+        with open(os.path.join(out, "asyncval_ledger.jsonl")) as f:
+            row = next(r for r in map(json.loads, f) if r["step"] == step)
+        differ = sum(served[q] != [d for d, _ in val[q]] for q in qids)
+        metrics = compute_metrics(served, ds.qrels, ["MRR@10", "Recall@100"])
+        diff = max(abs(v - row["metrics"][m]) for m, v in metrics.items())
+        check(differ <= LIST_SHARE * len(qids), f"serve {dt}: {differ} of "
+              f"{len(qids)} top-k lists differ from the validator's")
+        check(diff <= METRIC_TOL, f"serve {dt}: metrics differ by {diff:.3g}")
+        # the query embeddings the service scored, batch by batch
+        with torch.inference_mode():
+            q_emb = torch.cat([spec.encode_query(
+                index.params, *(torch.from_numpy(a).to(device) for a in
+                                pad_batch([t for _, t in items[i:i + 8]],
+                                          spec.q_max_len)))
+                for i in range(0, len(items), SERVE_BATCH)])
+        rr_run, rr_scores = retrieve_run(qids, q_emb, index.doc_ids,
+                                         index.emb, k=100, impl="cuda",
+                                         score_dtype=dt)
+        check(rr_run == served and rr_scores == scores,
+              f"serve {dt}: answers differ from retrieve_run on the same "
+              "operands")
+        emit({"phase": "serve", "part": "b", "score_dtype": dt, "step": step,
+              "lists_differ": differ, "lists": len(qids),
+              "max_metric_diff": diff, "metrics": metrics,
+              "validator_metrics": row["metrics"],
+              "retrieve_run_equal": True, "launches": counts,
+              "resident_dtype": str(index.emb.dtype).replace("torch.", ""),
+              "build_s": index.build_s,
+              "seconds": time.perf_counter() - t0})
+        if dt == "f32":
+            # where one served micro-batch's time goes (k = 10)
+            one = QueryService(spec, k=SERVE_K, max_batch=SERVE_BATCH)
+            one.install(index)
+            one.answer(items[:SERVE_BATCH])
+            emit(traced("serve_micro_batch",
+                        lambda: one.answer(items[:SERVE_BATCH]),
+                        TOPK_KERNELS))
+            del one
+        del index, svc
+
+
+def serve_swap_part(device, ds, spec, params, steps):
+    """(c) Hot-swap under load, under deterministic algorithms (set and
+    undone here, as the train phase does): the expected answer of every
+    (step, query) precomputed through ``answer`` at max_batch 8; then
+    8 client threads submit the 256 queries in a loop to the started
+    batcher (flush 4 ms, admission bound 256) while the promoter's
+    background loop swaps between the two checkpoints 3 times (through
+    ``target_fn``).  Gates: nothing dropped, rejected or timed out; every
+    response bit-equal to the precomputed answer of the step it names;
+    ``replay_swaps`` of the log equal to the promoter's swaps; the swap
+    events' provenance."""
+    from repro_torch.serve import (AdmissionController, IndexBuilder,
+                                   Promoter, QueryService, replay_swaps)
+
+    class TimedBuilder(IndexBuilder):
+        def build(self, p, step):
+            t0 = time.perf_counter()
+            index = super().build(p, step)
+            self.intervals.append((t0, time.perf_counter()))
+            return index
+
+    class TimedPromoter(Promoter):
+        def poll_once(self):
+            t0 = time.perf_counter()
+            swapped = super().poll_once()
+            if swapped:
+                self.promote_s.append(time.perf_counter() - t0)
+            return swapped
+
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    qids = sorted(ds.queries)
+    items = [(q, ds.queries[q]) for q in qids]
+    try:
+        builder = TimedBuilder(spec, ds.corpus, serve_config("f32", SERVE_K))
+        builder.intervals = []
+        expected, first = {}, None
+        for step in steps:
+            index = builder.build(params[step], step)
+            svc = QueryService(spec, k=SERVE_K, max_batch=SERVE_BATCH)
+            svc.install(index)
+            for r in svc.answer(items):
+                expected[(step, r.qid)] = (r.doc_ids, r.scores)
+            if first is None:
+                first = index
+        builder.intervals.clear()
+        adm = AdmissionController(256)
+        service = QueryService(spec, k=SERVE_K, max_batch=SERVE_BATCH,
+                               flush_ms=4.0, admission=adm)
+        service.install(first)
+        del first, index, svc
+        target = [steps[0]]
+        log = os.path.join(WORK, "serve_swap_events.jsonl")
+        if os.path.exists(log):
+            os.remove(log)
+        promoter = TimedPromoter(builder, service,
+                                 os.path.join(WORK, "ckpts"),
+                                 target_fn=lambda: target[0], log=log,
+                                 poll_interval_s=0.05)
+        promoter.promote_s = []
+        stop = threading.Event()
+        lock = threading.Lock()
+        records, errors = [], []
+
+        def client(i):
+            j = 0
+            while not stop.is_set():
+                qid, toks = items[(i * 32 + j) % len(items)]
+                j += 1
+                t0 = time.perf_counter()
+                try:
+                    r = service.submit(qid, toks, timeout=60)
+                except Exception as e:   # a dropped query is a blackout
+                    with lock:
+                        errors.append(repr(e))
+                    return
+                t1 = time.perf_counter()
+                ok = (r.doc_ids, r.scores) == expected[(r.step, r.qid)]
+                with lock:
+                    records.append((t0, t1, r.step, ok))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        service.start()
+        t_load = time.perf_counter()
+        for t in threads:
+            t.start()
+        promoter.start()
+        try:
+            time.sleep(2.0)                       # load on an idle index
+            for i in range(SERVE_SWAPS):
+                target[0] = steps[(i + 1) % len(steps)]
+                deadline = time.perf_counter() + 180
+                while service.live_step() != target[0] \
+                        and not promoter.failures \
+                        and time.perf_counter() < deadline:
+                    time.sleep(0.01)
+                check(service.live_step() == target[0],
+                      f"swap {i + 1} to {target[0]} did not land "
+                      f"({promoter.failures})")
+                time.sleep(1.0)                   # load on the new index
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(120)
+            promoter.stop()
+            service.stop()
+        wall = time.perf_counter() - t_load
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+    check(not any(t.is_alive() for t in threads), "a client did not stop")
+    check(not errors, f"{len(errors)} queries dropped: {errors[:3]}")
+    check(adm.rejected == 0, f"{adm.rejected} queries rejected")
+    wrong = sum(not ok for *_, ok in records)
+    check(wrong == 0, f"{wrong} of {len(records)} responses differ from "
+          "their step's precomputed answer")
+    check(not promoter.failures, f"promotions failed: {promoter.failures}")
+    check(len(promoter.swaps) == SERVE_SWAPS,
+          f"{len(promoter.swaps)} swaps, expected {SERVE_SWAPS}")
+    timeline = replay_swaps(log)
+    check([(t["prev_step"], t["step"]) for t in timeline]
+          == [(p, w) for p, w in promoter.swaps],
+          f"replay {timeline} vs swaps {promoter.swaps}")
+    swap_events = [e for e in promoter.log.events() if e.kind == "swap"]
+    for e in swap_events:
+        check(e.payload["score_dtype"] == "f32"
+              and e.payload["impl"] == "cuda"
+              and e.payload["n_docs"] == N_DOCS,
+              f"swap event provenance {e.payload}")
+    building = builder.intervals
+
+    def during_build(t0, t1):
+        return any(t0 < b1 and b0 < t1 for b0, b1 in building)
+
+    lat = {"idle": [], "build": []}
+    for t0, t1, *_ in records:
+        lat["build" if during_build(t0, t1) else "idle"].append(
+            (t1 - t0) * 1e3)
+    emit({"phase": "serve", "part": "c", "clients": SERVE_CLIENTS,
+          "deterministic_algorithms": True,
+          "responses": len(records), "wrong": wrong, "dropped": len(errors),
+          "rejected": adm.rejected, "swaps": promoter.swaps,
+          "replay_equal": True,
+          "steps_served": sorted({s for _, _, s, _ in records}),
+          "latency_ms": {k: {"p50": percentile(v, 50),
+                             "p99": percentile(v, 99), "n": len(v)}
+                         for k, v in lat.items()},
+          "qps": len(records) / wall, "wall_s": wall,
+          "build_s": [e.payload["build_s"] for e in swap_events],
+          "promote_s": promoter.promote_s,
+          "batches": service.batches,
+          "occupancy": service.served / max(1, service.batches
+                                            * SERVE_BATCH),
+          "admission_peak": adm.peak})
+
+
+class _RowIds:
+    """Doc ids ``p0 .. p{n-1}`` of a synthetic index, made on lookup."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, j):
+        return f"p{j}"
+
+
+def msmarco_part(device, ds, spec, params, step):
+    """(d) A ``ServingIndex`` of N = 8,841,823 seeded unit rows (D = 768,
+    drawn on the card: MS MARCO passage's corpus size, in place of an
+    hours-long corpus encode), queries encoded by the full-width model of
+    the first checkpoint, at f32 (27.2 GB resident), int8 over the same
+    f32 matrix, then bf16 (13.6 GB; the f32 matrix freed).  Per dtype: one
+    micro-batch of 8 held against ``topk_exact`` on the card (the same ids,
+    scores within 1e-5); 50 micro-batches through ``answer`` (CUDA events
+    around ``ServingIndex.topk``, wall per batch), launches per batch; the
+    kernels alone on prepared inputs (``ms``, profiler ``device_ms`` by
+    kernel, the host time of the window loop), the wrapper as serving
+    calls it (int8: with the corpus quantization, also timed alone), the
+    bytes bound and ``torch.topk(q @ c.T, 10)``."""
+    from repro_torch.core.retrieval import topk_exact
+    from repro_torch.data.corpus import pad_batch
+    from repro_torch.kernels.topk_mips import ops
+    from repro_torch.models.nn import to_torch_tree
+    from repro_torch.serve import QueryService, ServingIndex
+
+    class TimedIndex(ServingIndex):
+        def topk(self, q_emb, *, k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super().topk(q_emb, k=k)
+            end.record()
+            end.synchronize()
+            self.times.append(start.elapsed_time(end))
+            return out
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    N, D, Q, k = MSMARCO_N, spec.dim, SERVE_BATCH, SERVE_K
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    gen = torch.Generator(device=device).manual_seed(0)
+    emb = torch.randn((N, D), generator=gen, device=device)
+    emb.div_(emb.norm(dim=1, keepdim=True))
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    dev_params = to_torch_tree(params, device)
+    items = [(q, ds.queries[q]) for q in sorted(ds.queries)[:Q]]
+    service = QueryService(spec, k=k, max_batch=Q)
+    windows = serve_windows(device, N, k)
+    with torch.inference_mode():
+        q = spec.encode_query(dev_params, *(
+            torch.from_numpy(a).to(device)
+            for a in pad_batch([t for _, t in items], spec.q_max_len)))
+    emit({"phase": "serve", "part": "d", "setup": "index", "N": N, "D": D,
+          "free_gb_before": free_gb, "generate_s": t_gen,
+          "windows_per_call": windows})
+    rows = {}
+    for dt in ("f32", "int8", "bf16"):
+        if dt == "bf16":
+            emb = emb.to(torch.bfloat16)          # the f32 matrix is freed
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        index = TimedIndex(step=step, params=dev_params, doc_ids=_RowIds(N),
+                           emb=emb, n_docs=N, score_dtype=dt, impl="cuda",
+                           block=65536, build_s=t_gen)
+        index.times = []
+        service.install(index)
+        # one micro-batch against the plain version on the card
+        gs, gi = index.topk(q, k=k)
+        resp = service.answer(items)
+        check([r.doc_ids for r in resp] == [[f"p{j}" for j in row]
+                                            for row in gi],
+              f"msmarco {dt}: answer differs from the index's top-k")
+        ws, wi = topk_exact(q, emb, k=k, block=65536, score_dtype=dt)
+        ws, wi = ws.cpu().numpy(), wi.cpu().numpy()
+        err = float(np.abs(gs - ws).max())
+        check(np.array_equal(gi, wi), f"msmarco {dt}: ids differ from "
+              "topk_exact")
+        check(err <= TOL, f"msmarco {dt}: scores differ by {err:.3g}")
+        plain_ms = cuda_time_ms(lambda: topk_exact(
+            q, emb, k=k, block=65536, score_dtype=dt), iters=2)
+        # the timed micro-batches
+        index.times.clear()
+        reset_all_launches()
+        walls = []
+        for _ in range(MSMARCO_BATCHES):
+            t1 = time.perf_counter()
+            service.answer(items)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        counts = {key: n for key, n in all_launches().items() if n}
+        check(counts == {f"topk_mips_{dt}": MSMARCO_BATCHES * windows},
+              f"msmarco {dt}: launches {counts}, expected "
+              f"{MSMARCO_BATCHES} x {windows}")
+        batch_ms = list(index.times)
+        # the pieces of one call
+        qk, ck, qs, cs = ops._kernel_inputs(q, emb, dt)
+
+        def kernel():
+            return ops._topk_cuda(dt, qk, ck, qs, cs, k_target=k,
+                                  n_valid=N)
+
+        compare(dt, kernel(), (torch.from_numpy(gs).to(device),
+                               torch.from_numpy(gi).to(device)),
+                exact_ties=True)
+        ms = cuda_time_ms(kernel, iters=5)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            kernel()
+            host.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        per_call = {"score_f32" if dt == "f32" else "score_tc": windows,
+                    "select_topk": windows}
+        dev_ms, by_kernel, records = device_ms_many(f"topk_serve_{dt}",
+                                                    kernel, per_call)
+        wrapper_ms = cuda_time_ms(
+            lambda: ops.topk_mips(q, emb, k=k, score_dtype=dt), iters=5)
+        quant_ms = cuda_time_ms(lambda: ops._kernel_inputs(q, emb, dt),
+                                iters=3) if dt == "int8" else None
+        library_ms = cuda_time_ms(serve_library(dt, q, emb, qk, ck, qs, cs,
+                                                k), iters=5)
+        nbytes = (Q + N) * D * ELEM_BYTES[dt] + 2 * Q * k * 4
+        if dt == "int8":
+            nbytes += (Q + N) * 4
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = 2 * Q * N * D / PEAK_OPS_S[dt] * 1e3
+        batch_med = statistics.median(batch_ms)
+        row = {"phase": "serve", "part": "d", "shape": "serve",
+               "variant": dt, "Q": Q, "N": N, "D": D, "k": k,
+               "resident_dtype": str(emb.dtype).replace("torch.", ""),
+               "windows": windows,
+               "launches_per_batch": counts[f"topk_mips_{dt}"]
+               // MSMARCO_BATCHES,
+               "max_abs_err": err, "batch_topk_ms": {
+                   "median": batch_med, "min": min(batch_ms),
+                   "max": max(batch_ms)},
+               "batch_wall_ms": {"median": statistics.median(walls),
+                                 "min": min(walls), "max": max(walls)},
+               "ms": ms, "host_issue_ms": statistics.median(host),
+               "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
+               "profiler_records": records,
+               "wrapper_ms": wrapper_ms, "quantize_ms": quant_ms,
+               "host_share_of_batch": statistics.median(host) / batch_med,
+               "quantize_share_of_batch": None if quant_ms is None
+               else quant_ms / batch_med,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        emit(row)
+        rows[dt] = dict(row, launches=counts[f"topk_mips_{dt}"])
+        del qk, ck, qs, cs, index
+    del emb, service
+    return rows
+
+
+def serve_library(dt, q, emb, qk, ck, qs, cs, k):
+    """``torch.topk(q @ c.T, k)`` at the serving shape, as a function to
+    time — the yardstick only.  int8 on the quantized operands:
+    ``torch._int_mm`` takes more than 16 rows and a multiple of 8 columns,
+    so q is zero-padded to 32 rows and c by zero rows, here, outside the
+    timed call, and the pads' scores are sliced off."""
+    if dt == "int8":
+        qp = torch.cat([qk, qk.new_zeros((32 - qk.shape[0], qk.shape[1]))])
+        pad = (-ck.shape[0]) % 8
+        cp = torch.cat([ck, ck.new_zeros((pad, ck.shape[1]))]) if pad else ck
+        n = ck.shape[0]
+        return lambda: torch.topk(
+            torch._int_mm(qp, cp.t())[:q.shape[0], :n].float()
+            * qs[:, None] * cs[None, :], k)
+    if dt == "bf16":
+        qb = q.to(torch.bfloat16)
+        return lambda: torch.topk((qb @ emb.T).float(), k)
+    return lambda: torch.topk(q @ emb.T, k)
 
 
 # ---------------------------------------------------------------------------
@@ -2264,6 +2866,34 @@ def device_ms(name, fn, kernels, iters: int = 20):
                          f"{iters} calls)")
 
 
+def device_ms_many(name, fn, per_call, iters: int = 2):
+    """:func:`device_ms` for a call of many launches (``per_call``: kernel
+    name -> launches per call), where a profiler window of a few thousand
+    kernel records came back missing a few (1620 of 1623 at 541 windows
+    a call): each kernel's device time per call is its mean record times
+    its launches, the union of the intervals is scaled by the expected over
+    the found records, and fewer than 99% of them found fails.  Returns
+    (ms, ms by kernel, {"found", "expected"})."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ours = [e for e in device_events(prof, name)
+            if any(k in e["name"] for k in per_call)]
+    found = {k: sum(k in e["name"] for e in ours) for k in per_call}
+    want = {k: n * iters for k, n in per_call.items()}
+    check(all(found[k] >= 0.99 * want[k] for k in per_call),
+          f"{name}: the profiler kept {found} of {want} kernel records")
+    by_kernel = {k: sum(e["dur"] for e in ours if k in e["name"])
+                 / found[k] * per_call[k] / 1e3 for k in per_call}
+    busy = busy_us(ours) / 1e3 / iters * sum(want.values()) \
+        / sum(found.values())
+    return busy, by_kernel, {"found": found, "expected": want}
+
+
 def traced(name, fn, kernels):
     """Run ``fn`` once under ``torch.profiler``.  From the exported Chrome
     trace: device time by kernel, the time of the kernels whose names
@@ -2552,15 +3182,21 @@ def main(argv=None) -> int:
     whole_launches = {dt: None for dt in whole_rows}
     flash_launches = {dt: None for dt in flash_rows}
     decode_launches = {dt: None for dt in decode_rows}
+    serve_rows = {}
     if "--train-only" in argv:
         ds = write_dataset()
         lexical_subset(ds)
         train_phase(device, ds, trace="--trace" in argv)
+    elif "--serve-only" in argv:
+        ds = write_dataset()
+        launches, main_results = main_phase(device, ds)
+        serve_rows = serve_phase(device, ds, main_results)
     elif "--kernels-only" not in argv:
         encoder_phase(device)
         ds = write_dataset()
         launches, main_results = main_phase(device, ds)
         whole_launches = subset_phase(device, ds, main_results)
+        serve_rows = serve_phase(device, ds, main_results)
         if "--trace" in argv:
             trace_phase()
         train_phase(device, ds, trace="--trace" in argv)
@@ -2574,6 +3210,9 @@ def main(argv=None) -> int:
         kernel_row(f"topk_mips_{dt}_whole_corpus", SOURCE, REPLACES[dt],
                    whole_launches[dt], row)
         for dt, row in whole_rows.items()] + [
+        kernel_row(f"topk_mips_{dt}_serve", SOURCE, REPLACES[dt],
+                   row["launches"], row)
+        for dt, row in serve_rows.items()] + [
         kernel_row(f"flash_attention_{dt}", FLASH_SOURCE, FLASH_REPLACES,
                    flash_launches[dt], row)
         for dt, row in flash_rows.items()] + [

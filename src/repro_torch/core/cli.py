@@ -23,8 +23,13 @@ after validation, every decision in ``<run_name>_control.jsonl``), the
 hand-off spool (``--handoff_spool``: pre-durable snapshots a trainer
 spills, validated ahead of their checkpoint's COMMIT), ``--policy budget``
 and the telemetry flags (``--obs_trace``, ``--obs_report``,
-``--obs_metrics``).  Flags of parts not yet ported raise
-``NotImplementedError``: serving (``--serve*``), the fleet (``--worker``,
+``--obs_metrics``) and the serving tier (``--serve``, ``--serve_k``,
+``--serve_batch``, ``--serve_flush_ms``, ``--serve_pending``,
+``--serve_events``: after validation the control plane's pick, else the
+latest checkpoint, is promoted into a device-resident index and the query
+file is answered through it; with ``--watch`` every new pick hot-swaps in,
+and GC never deletes the checkpoint being served).  Flags of parts not yet
+ported raise ``NotImplementedError``: the fleet (``--worker``,
 ``--worker_id``, ``--capabilities``, ``--lease_ttl``, ``--max_abandons``)
 and ``--scan_window``.
 """
@@ -46,8 +51,6 @@ from repro_torch.core.registry import (ENCODERS, ENGINES, IMPLS, MODES,
 
 #: flag -> its value when unused; any other value raises "not yet ported"
 _NOT_PORTED = {
-    "serve": False, "serve_k": None, "serve_batch": None,
-    "serve_flush_ms": None, "serve_pending": None, "serve_events": None,
     "worker": False, "worker_id": None, "capabilities": None,
     "lease_ttl": None, "max_abandons": None, "scan_window": None,
 }
@@ -240,6 +243,26 @@ def _parser() -> argparse.ArgumentParser:
                          "this validator-only CLI (0 = off)")
     ap.add_argument("--stop_file", default=None,
                     help="STOP marker path (default: <logging_dir>/STOP)")
+    # -- retrieval serving tier (repro_torch.serve) ---------------------------
+    ap.add_argument("--serve", action="store_true",
+                    help="serve queries against promoted checkpoints "
+                         "through the validator's scoring path: one-shot "
+                         "mode answers --query_file once after validation; "
+                         "--watch keeps a promoter hot-swapping the live "
+                         "index on every control-plane pick (the serving "
+                         "checkpoint is GC-protected)")
+    ap.add_argument("--serve_k", type=int, default=10,
+                    help="results per served query")
+    ap.add_argument("--serve_batch", type=int, default=8,
+                    help="query micro-batch size (one fixed encode shape)")
+    ap.add_argument("--serve_flush_ms", type=float, default=4.0,
+                    help="max-latency flush for partial micro-batches")
+    ap.add_argument("--serve_pending", type=int, default=256,
+                    help="admission bound on in-flight requests (beyond "
+                         "it submits fail fast instead of queueing)")
+    ap.add_argument("--serve_events", default=None,
+                    help="replayable swap-event JSONL (default: "
+                         "<logging_dir>/<run_name>_serve.jsonl)")
     ap.add_argument("--ensemble_top_k", type=int, default=0,
                     help="after validation ends, greedy-soup the top-k "
                          "checkpoints by the control metric into a virtual "
@@ -391,6 +414,37 @@ def main(argv=None) -> int:
             event_path=os.path.join(logdir, f"{args.run_name}_control.jsonl"),
             telemetry=tel)
 
+    serve = None
+    if args.serve:
+        from repro_torch.serve import (AdmissionController, IndexBuilder,
+                                       Promoter, QueryService, ServeConfig)
+        # the validator's scoring knobs (score_dtype, impl, token-store
+        # geometry), so the answers served are the numbers the ledger holds
+        scfg = ServeConfig(k=args.serve_k, score_dtype=args.score_dtype,
+                           impl=args.impl, batch_size=args.batch_size,
+                           chunk_size=args.chunk_size,
+                           max_batch=args.serve_batch,
+                           flush_ms=args.serve_flush_ms,
+                           max_pending=args.serve_pending,
+                           token_backing=args.token_backing,
+                           mmap_dir=mmap_dir,
+                           token_fingerprint=args.token_fingerprint)
+        serve_service = QueryService(
+            spec, k=args.serve_k, max_batch=args.serve_batch,
+            flush_ms=args.serve_flush_ms,
+            admission=AdmissionController(args.serve_pending),
+            telemetry=tel)
+        serve_promoter = Promoter(
+            IndexBuilder(spec, corpus, scfg), serve_service,
+            args.ckpts_dir, telemetry=tel,
+            # the in-process control plane's live pick; without one, the
+            # latest committed checkpoint (the promoter's default)
+            target_fn=((lambda: control.selector.best_step)
+                       if control is not None else None),
+            log=args.serve_events or os.path.join(
+                logdir, f"{args.run_name}_serve.jsonl"))
+        serve = (serve_service, serve_promoter)
+
     snapshots = None
     if args.handoff_spool:
         from repro_torch.handoff import SnapshotSpool
@@ -402,7 +456,10 @@ def main(argv=None) -> int:
         max_num_valid=args.max_num_valid, controller=control,
         ledger_path=os.path.join(logdir, f"{args.run_name}_ledger.jsonl"),
         poll_interval_s=args.poll_interval, telemetry=tel,
-        snapshots=snapshots)
+        snapshots=snapshots,
+        # GC never deletes the checkpoint behind the live (or promoting)
+        # serving index
+        extra_protect=serve[1].protect_set if serve is not None else None)
     if control is not None:
         # restart: warm the ranking from the previous session's rows (old
         # steps are never validated again, and a cold selector would GC
@@ -419,6 +476,10 @@ def main(argv=None) -> int:
                 for r in validator.results[len(validator.results) - n:]:
                     print(f"[asyncval] step {r.step}: {r.log_metrics} "
                           f"({r.timings['total_s']:.1f}s)")
+                if serve is not None and serve[1].poll_once():
+                    # zero downtime: the old index answered meanwhile
+                    print(f"[serve] hot-swap -> step "
+                          f"{serve[0].live_step()}", file=sys.stderr)
                 if control is not None and control.stopped and n == 0:
                     # the STOP marker is out and the backlog is drained
                     print("[asyncval] early stop "
@@ -433,6 +494,22 @@ def main(argv=None) -> int:
         for r in validator.results:
             print(f"[asyncval] step {r.step}: {r.log_metrics} "
                   f"({r.timings['total_s']:.1f}s)")
+
+    if serve is not None:
+        serve_service, serve_promoter = serve
+        serve_promoter.poll_once()       # one-shot: promote the final pick
+        if serve_service.live is None:
+            print("[serve] no promotable checkpoint; skipping serve pass",
+                  file=sys.stderr)
+        else:
+            resp = serve_service.answer(sorted(queries.items()))
+            lat = sorted(r.latency_s for r in resp)
+            p50 = lat[len(lat) // 2] * 1e3
+            p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
+            print(f"[serve] answered {len(resp)} queries: "
+                  f"p50={p50:.2f}ms p99={p99:.2f}ms "
+                  f"step={serve_service.live_step()}")
+
     if control is not None and args.ensemble_top_k:
         from repro_torch.control import MetricSpec
         cspec = MetricSpec.parse(control.cfg.metric)

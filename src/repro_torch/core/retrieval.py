@@ -37,7 +37,7 @@ Run = Dict[str, List[str]]
 Scores = Dict[str, List[float]]
 
 #: retrieve_run impls: plain PyTorch, or the topk_mips kernels
-_IMPLS = ("torch", "cuda")
+IMPLS = ("torch", "cuda")
 
 
 def _merge_topk(scores_a, idx_a, scores_b, idx_b, k: int):
@@ -85,9 +85,9 @@ def retrieve_run(query_ids: Sequence[str], q_emb, doc_ids: Sequence[str],
     topk_mips kernels over the whole corpus (its plain version for CPU
     tensors); ``impl="torch"`` is :func:`topk_exact`."""
     validate_score_dtype(score_dtype)
-    if impl not in _IMPLS:
+    if impl not in IMPLS:
         raise ValueError(f"unknown retrieval impl {impl!r} "
-                         f"(expected one of {_IMPLS})")
+                         f"(expected one of {IMPLS})")
     c = _as_tensor(c_emb)
     q = _as_tensor(q_emb, c.device)
     if impl == "cuda":

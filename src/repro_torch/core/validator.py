@@ -334,7 +334,10 @@ class AsyncValidator:
     wakes the loop at once, a snapshot that fails validation is discarded
     (the retry restores the durable checkpoint), and a snapshot verdict
     marks the step seen, so the watcher's later discovery of its
-    checkpoint validates nothing twice."""
+    checkpoint validates nothing twice.  ``extra_protect`` (a callable
+    returning a set of steps) unions protections from outside validation
+    into :meth:`protect_set`: the serving tier's live and promoting
+    checkpoints (``Promoter.protect_set``)."""
 
     def __init__(self, ckpt_root: str, pipeline, *,
                  logger: Optional[BaseLogger] = None,
@@ -346,7 +349,8 @@ class AsyncValidator:
                  template: Optional[dict] = None,
                  engine: Any = None, max_retries: int = 2,
                  controller: Any = None,
-                 telemetry=None, snapshots: Any = None):
+                 telemetry=None, snapshots: Any = None,
+                 extra_protect: Optional[Callable[[], set]] = None):
         self.ckpt_root = ckpt_root
         self.telemetry = telemetry
         self.watcher = CheckpointWatcher(ckpt_root, policy=policy,
@@ -356,6 +360,7 @@ class AsyncValidator:
         if snapshots is not None and hasattr(snapshots, "subscribe"):
             snapshots.subscribe(lambda step: self._wake.set())
         self.controller = controller
+        self.extra_protect = extra_protect
         self.max_num_valid = max_num_valid
         expected = tuple(getattr(pipeline, "task_names", ()) or ("default",))
         if telemetry is not None:
@@ -501,8 +506,11 @@ class AsyncValidator:
         return self.results
 
     def protect_set(self) -> set:
-        """Committed steps not yet validated and not policy-skipped: the
-        ones checkpoint GC must keep."""
+        """The steps checkpoint GC must keep: committed, not yet validated
+        and not policy-skipped, plus whatever ``extra_protect`` names."""
         committed = set(ckpt.list_steps(self.ckpt_root))
-        return committed - set(self.ledger.validated_steps) \
+        protected = committed - set(self.ledger.validated_steps) \
             - self.watcher.skipped
+        if self.extra_protect is not None:
+            protected |= set(self.extra_protect())
+        return protected

@@ -135,6 +135,28 @@ def pad_features(x: torch.Tensor, width: int) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+#: rows quantized at a time: a corpus quantized whole would hold several
+#: f32 temporaries of its own size (81.6 GB beside a 27.2 GB corpus at
+#: MS MARCO's 8.8 M rows x 768)
+QUANT_ROWS = 1 << 18
+
+
+def _quantize_rows(x: torch.Tensor):
+    """:func:`quantize_int8` of a (N, D) matrix -> (values int8 (N, D),
+    scales f32 (N,)), ``QUANT_ROWS`` rows at a time.  The quantization is
+    per row, so the values are the ones a whole-matrix call gives."""
+    if x.shape[0] <= QUANT_ROWS:
+        vals, scale = quantize_int8(x)
+        return vals, scale.reshape(-1).contiguous()
+    vals = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    for r0 in range(0, x.shape[0], QUANT_ROWS):
+        v, sc = quantize_int8(x[r0:r0 + QUANT_ROWS])
+        vals[r0:r0 + QUANT_ROWS] = v
+        scales[r0:r0 + QUANT_ROWS] = sc.reshape(-1)
+    return vals, scales
+
+
 def _kernel_inputs(q, c, score_dtype):
     """Cast or quantize the operands as the variant needs them."""
     dtypes = (torch.float32, torch.bfloat16) if score_dtype == "bf16" \
@@ -148,9 +170,9 @@ def _kernel_inputs(q, c, score_dtype):
         return q, c, None, None
     if score_dtype == "bf16":
         return q.to(torch.bfloat16), c.to(torch.bfloat16), None, None
-    qv, qs = quantize_int8(q)
-    cv, cs = quantize_int8(c)
-    return qv, cv, qs.reshape(-1).contiguous(), cs.reshape(-1).contiguous()
+    qv, qs = _quantize_rows(q)
+    cv, cs = _quantize_rows(c)
+    return qv, cv, qs, cs
 
 
 def _windows(n_valid: int, k_target: int, kc: int, cols: int,

@@ -123,11 +123,10 @@ def test_port_cli_matches_jax_cli(filespace, tmp_path, score_dtype):
 
 def test_unported_flags_raise(filespace, tmp_path):
     base = _args(filespace, tmp_path, "torch_encoder") + ["--device", "cpu"]
-    # the control plane's and the hand-off's flags are ported (tests/
-    # test_torch_control_integration.py); serving, the fleet and
-    # --scan_window not
-    for extra in (["--serve"], ["--serve_k", "5"], ["--worker"],
-                  ["--worker_id", "w0"], ["--lease_ttl", "4"],
+    # the control plane's, the hand-off's and serving's flags are ported
+    # (tests/test_torch_control_integration.py, tests/test_torch_serve.py);
+    # the fleet and --scan_window not
+    for extra in (["--worker"], ["--worker_id", "w0"], ["--lease_ttl", "4"],
                   ["--scan_window", "4"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             torch_main(base + extra)

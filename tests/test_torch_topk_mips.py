@@ -48,6 +48,26 @@ def test_topk_mips_matches_jax(Q, N, D, k, score_dtype):
     _assert_same_topk(js, ji, ts, ti, 1e-5)
 
 
+@pytest.mark.parametrize("rows", [1, 7, 64])
+def test_kernel_inputs_quantize_in_row_blocks(monkeypatch, rows):
+    """The wrapper quantizes a corpus ``QUANT_ROWS`` rows at a time (a whole
+    MS MARCO-sized matrix would need f32 temporaries of its own size):
+    the int8 images and scales equal the JAX package's whole-matrix
+    ``quantize_int8`` exactly, at every block size."""
+    monkeypatch.setattr(ops, "QUANT_ROWS", rows)
+    q, c = _inputs(5, 50, 17, seed=2)
+    c[3] = 0.0                                     # an all-zero row: scale 1
+    qk, ck, qs, cs = ops._kernel_inputs(torch.from_numpy(q),
+                                        torch.from_numpy(c), "int8")
+    for got_v, got_s, x in ((qk, qs, q), (ck, cs, c)):
+        want_v, want_s = (np.asarray(a)
+                          for a in jops.quantize_int8(jnp.asarray(x)))
+        np.testing.assert_array_equal(got_v.numpy(), want_v)
+        np.testing.assert_array_equal(got_s.numpy(), want_s.reshape(-1))
+        assert got_v.dtype == torch.int8 and got_s.shape == (x.shape[0],)
+        assert got_s.is_contiguous()
+
+
 @pytest.mark.parametrize("Q,N,D,k", NARROW_SHAPES)
 def test_topk_mips_int8_matches_jax(Q, N, D, k):
     q, c = _inputs(Q, N, D, seed=1)
