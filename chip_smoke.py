@@ -11,6 +11,9 @@
     python3 chip_smoke.py --serve-only   # the kernel phases, then the main
                                          # phase (5) and the serve phase
                                          # (5d) on its checkpoints
+    python3 chip_smoke.py --fleet-only   # the kernel phases, then the main
+                                         # phase (5) and the fleet phase
+                                         # (5e) on its checkpoints
 
 Phases, each printing one JSON line:
 
@@ -135,6 +138,36 @@ Phases, each printing one JSON line:
                 window loop's host time), the wrapper (int8: with the corpus
                 quantization, also alone), the bytes bound and
                 ``torch.topk(q @ c.T, 10)``.
+  5e. fleet   — the validator fleet and the sharded paths on the main
+                phase's data and checkpoints: (a) two ``ValidatorWorker``
+                threads, each on its own CUDA stream, drain one ledger
+                ``WorkQueue`` with a two-task suite (f32 and int8, both
+                ``impl="cuda"``; 4 units): every unit completed once, the
+                claims split, 8 topk_mips launches a unit (16 f32, 16
+                int8), metrics within 1e-6 of the main phase's rows,
+                ``replay`` equal to the online folds; (b) ``python -m
+                repro_torch.launch.fleet --workers 2 -- python -m
+                repro_torch.core.cli --worker --impl cuda ...`` on a fresh
+                copy (exit 0, each step ledgered once, the main phase's
+                metrics), then a victim worker SIGKILLed while it holds a
+                lease and a survivor (``--lease_ttl 4``) that ticks the
+                lease out, reclaims and completes it (each unit once,
+                ``replay`` attributing to the survivor what it reported
+                online); walls and checkpoint-to-verdict; (c) on
+                ``make_mesh((2, 2), ("data", "model"), devices=[cuda:0] *
+                4)``: ``impl="torch"`` f32 retrieval (``topk_sharded``)
+                and rerank over the baseline's top 100
+                (``rerank_sharded``) at full width, no topk_mips launch,
+                at most 1% of (step, query) top-k lists and 1e-4 on
+                metrics from the unsharded runs (the card encodes and
+                scores its four shards' rows in one call each; a
+                ``"mode": "rounding"`` line shows what a product per shard
+                would move); ``impl="cuda"`` with the mesh: 8 launches a
+                checkpoint; (d) serve phase d's
+                8,841,823 rows in a ``ServingIndex`` over the four shards
+                (1 zero pad in the last): 10 micro-batches of 8 at k=10
+                with ids equal to the unsharded ``topk_exact`` on the card
+                and scores within 1e-5, ms per batch (CUDA events).
   5c. train   — the trainer and the asynchronous train -> validate loop
                 (paper Fig. 1) on the main phase's data: full-width
                 dr-bert-base, f32, AdamW (warmup to 3e-5, temperature 0.05),
@@ -195,7 +228,8 @@ Phases, each printing one JSON line:
 Kernel launches are counted only while a path runs (the main path for
 topk_mips, also read over each run of the train phase, the subset phase's
 materialized runs for its whole-corpus rows, the serve phase's 50 timed
-micro-batches at MS MARCO's size for its ``_serve`` rows,
+micro-batches at MS MARCO's size for its ``_serve`` rows, the fleet
+phase's in-process fleet (a) for its ``_fleet`` rows,
 the LM phase's ``lm_loss`` for flash attention, its ``serve_batch`` calls
 for decode attention: the three timed bf16 calls and the f32 one), with
 every count set to 0 just before it.  Then a
@@ -213,6 +247,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1782,6 +1817,618 @@ def serve_library(dt, q, emb, qk, ck, qs, cs, k):
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: the validator fleet and the sharded paths on the main phase's data
+# ---------------------------------------------------------------------------
+
+# (a) the in-process fleet's two tasks (both impl="cuda"): 2 checkpoints x 2
+# tasks = 4 units, 8 topk_mips launches a unit (8 chunks of 1024)
+FLEET_DTYPES = ("f32", "int8")
+# (b) the SIGKILL run's lease, in ledger records
+FLEET_KILL_TTL = 4
+# (c), (d): four shards of one card, two mesh axes
+FLEET_MESH = ((2, 2), ("data", "model"))
+# (d) micro-batches of SERVE_BATCH queries at SERVE_K against the sharded
+# MS MARCO-sized index
+FLEET_SERVE_BATCHES = 10
+
+
+def fleet_vcfg(dt, impl, mesh=None, **kw):
+    """The main phase's CLI settings as a ValidationConfig."""
+    from repro_torch.core.suite import ValidationConfig
+    return ValidationConfig(metrics=("MRR@10", "Recall@100"), k=100,
+                            batch_size=256, chunk_size=1024, impl=impl,
+                            score_dtype=dt, mesh=mesh, **kw)
+
+
+def fleet_phase(device, ds, main_results):
+    """(a) two ``ValidatorWorker`` threads drain one ``WorkQueue``, (b)
+    ``python -m repro_torch.launch.fleet`` and a SIGKILLed CLI worker,
+    (c) sharded validation on a mesh of four shards of the card, (d)
+    sharded serving at MS MARCO's size.  Returns the topk_mips launches
+    of (a) by dtype."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    # the caching allocator may hold tens of GB after the serve phase; the
+    # CLI workers of (b) are processes of their own and need that memory
+    torch.cuda.empty_cache()
+    steps = [r["step"] for r in main_results[("cuda", "f32")]]
+    spec = serve_spec()
+    launches = fleet_inproc_part(ds, main_results, spec, steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_cli_part(main_results, steps)
+    fleet_sharded_part(device, ds, main_results, spec, steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_serve_part(device, ds, spec, steps[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "fleet", "ok": True,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def fleet_rows_match(rows, main_results, impl, name):
+    """Every ledger row's metrics within 1e-6 of the main phase's row of
+    its step at its dtype; returns the largest difference."""
+    worst = 0.0
+    for r in rows:
+        want = {m["step"]: m for m in main_results[(impl, r["score_dtype"])]}
+        for metric, v in want[r["step"]]["metrics"].items():
+            diff = abs(r["metrics"][metric] - v)
+            worst = max(worst, diff)
+            check(diff <= 1e-6, f"{name}: step {r['step']} "
+                  f"{r['score_dtype']} {metric} {r['metrics'][metric]} vs "
+                  f"the main phase's {v}")
+    return worst
+
+
+def fleet_fold_view(state):
+    return {key: (st.status, st.holder, st.completed_by, st.abandons)
+            for key, st in state.units.items()}
+
+
+def fleet_inproc_part(ds, main_results, spec, steps):
+    """(a) Two ``ValidatorWorker``\\ s on two threads, each on its own CUDA
+    stream, drain one ``WorkQueue`` over a copy of the two checkpoints with
+    a two-task suite (``f32`` and ``int8``, both ``impl="cuda"``): every
+    unit completed once, claims split between the workers, exactly 8
+    topk_mips launches per unit (read from the counters), metrics within
+    1e-6 of the main phase's ``--impl cuda`` rows, and ``replay`` of the
+    ledger equal to both workers' online fold."""
+    from repro_torch.core.suite import ValidationSuite, ValidationTask
+    from repro_torch.core.validator import ValidationLedger, ValidatorWorker
+    from repro_torch.core.workqueue import WorkQueue, replay
+    ckdir = os.path.join(WORK, "fleet_a_ckpts")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    shutil.copytree(os.path.join(WORK, "ckpts"), ckdir)
+    ledger = os.path.join(WORK, "fleet_a_ledger.jsonl")
+    if os.path.exists(ledger):
+        os.remove(ledger)
+
+    def suite():
+        # one engine per dtype, injected per task: a suite's tasks share
+        # one config, and the two tasks score at two dtypes
+        engines = {dt: ValidationSuite(spec, [ValidationTask(
+            "default", ds.corpus, ds.queries, ds.qrels)],
+            fleet_vcfg(dt, "cuda")).engine("default") for dt in FLEET_DTYPES}
+        return ValidationSuite(spec, [
+            ValidationTask(dt, ds.corpus, ds.queries, ds.qrels)
+            for dt in FLEET_DTYPES], fleet_vcfg("f32", "cuda"),
+            engines=engines)
+
+    workers = []
+    for wid in ("w0", "w1"):
+        s = suite()
+        workers.append(ValidatorWorker(
+            ckdir, s, ledger=ValidationLedger(ledger,
+                                              expected_tasks=s.task_names),
+            queue=WorkQueue(ledger, wid, capabilities={"mesh_size": 1}),
+            worker_id=wid))
+    units = [u for step in steps
+             for u in workers[0].pipeline.plan_units(step)]
+    check(len(workers[0].queue.publish(units)) == len(units),
+          "fleet (a): publication")
+    stop = threading.Event()
+
+    def drained():
+        return len(replay(ledger).completed_units()) == len(units)
+
+    threads = [threading.Thread(target=w.run_forever, args=(stop,),
+                                kwargs={"idle_wait_s": 0.02,
+                                        "drained": drained})
+               for w in workers]
+    reset_all_launches()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    stop.set()
+    counts = all_launches()
+    check(not any(t.is_alive() for t in threads),
+          "fleet (a): a worker thread still runs")
+    for w in workers:
+        check(not w.errors, f"fleet (a) {w.worker_id}: {list(w.errors)}")
+    n_chunks = -(-N_DOCS // 1024)
+    want = {key: 0 for key in counts}
+    for dt in FLEET_DTYPES:
+        want[f"topk_mips_{dt}"] = n_chunks * len(steps)
+    check(counts == want, f"fleet (a): launches {counts}, expected {want}")
+    with open(ledger) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    rows = [r for r in recs if "kind" not in r]
+    check(sorted((r["step"], r["task"]) for r in rows)
+          == sorted(u.key for u in units),
+          f"fleet (a): rows {[(r['step'], r['task']) for r in rows]}")
+    check(all(r["task"] == r["score_dtype"] for r in rows),
+          "fleet (a): a task scored at another dtype")
+    by_worker = {w.worker_id: [list(u.key) for u in w.completed]
+                 for w in workers}
+    check(all(by_worker.values()), f"fleet (a): claims {by_worker}")
+    check(sorted(r["worker_id"] for r in rows)
+          == sorted(w for w, us in by_worker.items() for _ in us),
+          "fleet (a): rows' worker ids differ from the completions")
+    worst = fleet_rows_match(rows, main_results, "cuda", "fleet (a)")
+    offline = replay(ledger)
+    for w in workers:
+        online = w.queue.refresh()
+        check(online.events == offline.events
+              and fleet_fold_view(online) == fleet_fold_view(offline),
+              f"fleet (a): replay differs from {w.worker_id}'s fold")
+    emit({"phase": "fleet", "part": "a", "units": len(units),
+          "by_worker": by_worker, "launches": {k: n for k, n in
+                                               counts.items() if n},
+          "records": len(recs), "renews": sum(r.get("kind") == "renew"
+                                              for r in recs),
+          "metrics_max_diff": worst, "wall_s": wall,
+          "unit_total_s": {f"{r['step']}/{r['task']}": r["timings"]
+                           ["total_s"] for r in rows}})
+    del workers, threads
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return {dt: counts[f"topk_mips_{dt}"] for dt in FLEET_DTYPES}
+
+
+def fleet_worker_argv(ckdir, outdir, extra=()):
+    """``python -m repro_torch.core.cli --worker`` with the main phase's
+    settings at ``--impl cuda`` f32."""
+    return [sys.executable, "-m", "repro_torch.core.cli",
+            "--query_file", os.path.join(WORK, "q.jsonl"),
+            "--candidate_dir", os.path.join(WORK, "corpus"),
+            "--ckpts_dir", ckdir,
+            "--qrel_file", os.path.join(WORK, "qrels.txt"),
+            "--q_max_len", "32", "--p_max_len", "128",
+            "--metrics", "MRR@10", "Recall@100", "--impl", "cuda",
+            "--score_dtype", "f32", "--chunk_size", "1024",
+            "--batch_size", "256", "--output_dir", outdir, "--worker",
+            *extra]
+
+
+def fleet_copy(tag):
+    """A fresh copy of the main phase's checkpoints with their COMMIT
+    markers stamped now (the fleet's backlog lands at this moment), and an
+    empty output directory."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    ckdir = os.path.join(WORK, f"fleet_{tag}_ckpts")
+    outdir = os.path.join(WORK, f"fleet_{tag}_out")
+    for d in (ckdir, outdir):
+        shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(os.path.join(WORK, "ckpts"), ckdir)
+    for step in ckpt.list_steps(ckdir):
+        os.utime(os.path.join(ckpt._step_dir(ckdir, step),
+                              ckpt.COMMIT_MARKER))
+    return ckdir, outdir
+
+
+def fleet_watch(procs, ledger, t0, *, timeout=900):
+    """Poll the ledger until every process in ``procs`` has exited: the
+    seconds from ``t0`` at which each result row first appeared
+    (checkpoint-to-verdict: the COMMIT markers were stamped at ``t0``)."""
+    from repro_torch.core.workqueue import WorkQueue
+    observer = WorkQueue(ledger, "observer")      # reads, never appends
+    seen, deadline = {}, time.monotonic() + timeout
+    while True:
+        done = all(p.poll() is not None for p in procs)
+        if os.path.exists(ledger):
+            for r in observer.refresh().result_rows:
+                seen.setdefault((r["step"], r["task"]),
+                                time.perf_counter() - t0)
+        if done:
+            return seen
+        if time.monotonic() > deadline:
+            for p in procs:
+                p.kill()
+            raise RuntimeError(f"fleet: workers still running after "
+                               f"{timeout} s")
+        time.sleep(0.05)
+
+
+def fleet_first_claim(proc, ledger, worker_id, *, timeout=600):
+    """Wait until the ledger's fold shows ``worker_id`` holding a lease;
+    returns that unit's key."""
+    from repro_torch.core.workqueue import CLAIMED, WorkQueue
+    observer = WorkQueue(ledger, "observer")
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        check(proc.poll() is None, f"fleet kill: {worker_id} exited "
+              f"({proc.returncode}) before it held a claim")
+        if os.path.exists(ledger):
+            held = [key for key, st in observer.refresh().units.items()
+                    if st.status == CLAIMED and st.holder == worker_id]
+            if held:
+                return held[0]
+        time.sleep(0.02)
+    proc.kill()
+    raise RuntimeError(f"fleet kill: {worker_id} held no claim in "
+                       f"{timeout} s")
+
+
+def fleet_cli_part(main_results, steps):
+    """(b) ``python -m repro_torch.launch.fleet --workers 2 -- python -m
+    repro_torch.core.cli --worker --impl cuda --score_dtype f32 ...`` on a
+    fresh copy: exit 0, every step ledgered once, by the two workers, with
+    the main phase's f32 metrics.  Then a second copy with ``--lease_ttl
+    4``: a victim worker is SIGKILLed as soon as the ledger's fold shows
+    it holding a lease, and a survivor started then must tick the dead
+    lease out, reclaim the unit and complete it; every unit completed
+    once, and ``replay`` attributes to the survivor exactly the units it
+    reported completing online.  Walls and checkpoint-to-verdict (from the
+    stamped COMMIT markers to each row's appearance in the ledger)."""
+    from repro_torch.core.workqueue import replay
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+
+    ckdir, outdir = fleet_copy("b")
+    ledger = os.path.join(outdir, "asyncval_ledger.jsonl")
+    log_path = os.path.join(WORK, "fleet_launcher.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        launcher = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.fleet", "--workers",
+             "2", "--poll_interval", "0.2", "--"]
+            + fleet_worker_argv(ckdir, outdir),
+            env=env, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    verdicts = fleet_watch([launcher], ledger, t0)
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        log = f.read()
+    check(launcher.returncode == 0,
+          f"launch.fleet returned {launcher.returncode}:\n{log[-4000:]}")
+    state = replay(ledger)
+    rows = state.result_rows
+    check(sorted(r["step"] for r in rows) == steps,
+          f"launch.fleet: ledgered steps {[r['step'] for r in rows]}")
+    check(sorted(state.completed_units()) == [(s, "default") for s in steps]
+          and len(state.units) == len(steps),
+          f"launch.fleet: units {sorted(state.units)}")
+    wids = sorted(r["worker_id"] for r in rows)
+    check(set(wids) <= {"worker-0", "worker-1"},
+          f"launch.fleet: worker ids {wids}")
+    worst = fleet_rows_match(rows, main_results, "cuda", "launch.fleet")
+    emit({"phase": "fleet", "part": "b", "run": "launch.fleet",
+          "workers": 2, "worker_ids": wids, "wall_s": wall,
+          "ckpt_to_verdict_s": {str(s): verdicts[(s, "default")]
+                                for s in steps},
+          "unit_total_s": {str(r["step"]): r["timings"]["total_s"]
+                           for r in rows},
+          "metrics_max_diff": worst})
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    ckdir, outdir = fleet_copy("kill")
+    ledger = os.path.join(outdir, "asyncval_ledger.jsonl")
+    extra = ["--lease_ttl", str(FLEET_KILL_TTL)]
+    logs = {w: os.path.join(WORK, f"fleet_{w}.log")
+            for w in ("victim", "survivor")}
+
+    def start(worker_id):
+        with open(logs[worker_id], "w") as f:
+            return subprocess.Popen(
+                fleet_worker_argv(ckdir, outdir,
+                                  extra + ["--worker_id", worker_id]),
+                env=env, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+
+    # the victim dies holding its first lease, mid-unit; the survivor
+    # starts then, so it always meets the dead lease
+    t0 = time.perf_counter()
+    victim = start("victim")
+    killed = fleet_first_claim(victim, ledger, "victim")
+    victim.send_signal(signal.SIGKILL)
+    victim.wait(timeout=60)
+    t_kill = time.perf_counter() - t0
+    survivor = start("survivor")
+    verdicts = fleet_watch([survivor], ledger, t0)
+    wall = time.perf_counter() - t0
+    with open(logs["survivor"]) as f:
+        survivor_log = f.read()
+    check(victim.returncode == -signal.SIGKILL,
+          f"fleet kill: victim rc {victim.returncode}")
+    check(survivor.returncode == 0,
+          f"fleet kill: survivor returned {survivor.returncode}:"
+          f"\n{survivor_log[-4000:]}")
+    state = replay(ledger, lease_ttl=FLEET_KILL_TTL)
+    rows = state.result_rows
+    check(sorted((r["step"], r["task"]) for r in rows)
+          == sorted(state.completed_units())
+          == [(s, "default") for s in steps],
+          f"fleet kill: rows {[(r['step'], r['task']) for r in rows]}")
+    check(not [k for k, st in state.units.items() if st.status == "failed"],
+          "fleet kill: a unit failed")
+    reclaims = [e for e in state.events if e["event"] == "reclaim"]
+    check(any((e["step"], e["task"]) == killed and e["from"] == "victim"
+              and e["worker"] == "survivor" for e in reclaims),
+          f"fleet kill: no reclaim of {killed} by the survivor: {reclaims}")
+    online = sorted(
+        (int(ln.split()[4]), ln.split()[6])
+        for ln in survivor_log.splitlines()
+        if ln.startswith("[asyncval] survivor completed step"))
+    offline = sorted(k for k, st in state.units.items()
+                     if st.completed_by == "survivor")
+    check(online == offline == [(s, "default") for s in steps],
+          f"fleet kill: the survivor completed {online} online, replay "
+          f"attributes {offline}")
+    worst = fleet_rows_match(rows, main_results, "cuda", "fleet kill")
+    emit({"phase": "fleet", "part": "b", "run": "sigkill",
+          "lease_ttl": FLEET_KILL_TTL, "killed_unit": list(killed),
+          "killed_at_s": t_kill, "reclaims": reclaims, "wall_s": wall,
+          "ckpt_to_verdict_s": {f"{s}/{t}": v
+                                for (s, t), v in sorted(verdicts.items())},
+          "metrics_max_diff": worst})
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def fleet_runs(eng, params, steps, qrels, metrics):
+    """``eng.run`` per checkpoint -> the ``held`` record: TREC-shaped runs
+    and rows of metrics, in step order."""
+    from repro_torch.core.metrics import compute_metrics
+    runs, rows, seconds = {}, [], {}
+    for step in steps:
+        run, scores, timings = eng.run(params[step])
+        runs[step] = {q: list(zip(run[q], scores[q])) for q in run}
+        rows.append({"step": step, "metrics": compute_metrics(
+            run, qrels, list(metrics))})
+        seconds[str(step)] = timings["total_s"]
+    return {"runs": runs, "rows": rows, "total_s": seconds}
+
+
+def fleet_sharded_part(device, ds, main_results, spec, steps):
+    """(c) Validation on ``make_mesh((2, 2), ("data", "model"),
+    devices=[cuda:0] * 4)`` at full width: ``impl="torch"`` f32 retrieval
+    (``topk_sharded``) against the main phase's unsharded ``--impl torch``
+    rows and runs, and rerank over the baseline's top 100
+    (``rerank_sharded``) against the unsharded rerank stage; no topk_mips
+    launch in these runs (the reference's XLA route); at most 1% of
+    (step, query) top-k lists and no metric by more than 1e-4 apart.  The
+    four shards share the card, so the card encodes and scores their rows
+    in one call each (``engine.device_batches``) and the merges run per
+    shard.  ``impl="cuda"`` with the mesh: the route ignores it, 8
+    launches per checkpoint."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core.metrics import read_trec_run
+    from repro_torch.core.registry import SAMPLERS
+    from repro_torch.core.suite import ValidationSuite, ValidationTask
+    from repro_torch.distributed import compat
+    shape, axes = FLEET_MESH
+    mesh = compat.make_mesh(shape, axes, [device] * math.prod(shape))
+    params = {s: ckpt.restore(os.path.join(WORK, "ckpts"), s,
+                              template={"params": spec.param_shapes}
+                              )[0]["params"] for s in steps}
+    names = ("MRR@10", "Recall@100")
+
+    def engine(vcfg, **task_kw):
+        return ValidationSuite(spec, [ValidationTask(
+            "default", ds.corpus, ds.queries, ds.qrels, **task_kw)],
+            vcfg).engine("default")
+
+    # retrieval: sharded against the main phase's unsharded torch run
+    eng = engine(fleet_vcfg("f32", "torch", mesh))
+    check(eng.stage.name == "topk_sharded" and eng.query_mesh is mesh,
+          f"fleet (c): stage {eng.stage.name}")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    sharded = fleet_runs(eng, params, steps, ds.qrels, names)
+    seconds = time.perf_counter() - t0
+    counts = {k: n for k, n in all_launches().items() if n}
+    check(not counts, f"fleet (c) retrieval: kernel launches {counts}")
+    main = {"runs": {s: read_trec_run(os.path.join(
+        WORK, "out_torch_f32", f"asyncval_step{s}.trec")) for s in steps},
+        "rows": main_results[("torch", "f32")]}
+    emit({"phase": "fleet", "part": "c", "mode": "retrieval",
+          "impl": "torch", "mesh": dict(mesh.shape), "stage": eng.stage.name,
+          **held(main, sharded, "sharded retrieval"), "launches": counts,
+          "total_s": sharded["total_s"],
+          "main_total_s": {str(r["step"]): r["timings"]["total_s"]
+                           for r in main_results[("torch", "f32")]},
+          "seconds": seconds})
+    del eng
+
+    fleet_rounding_part(device, ds, spec, params[steps[0]])
+
+    # rerank over the baseline's top 100: sharded against unsharded
+    run_path = os.path.join(WORK, "lexical.trec")
+    if not os.path.exists(run_path):
+        lexical_subset(ds)
+    baseline = read_trec_run(run_path)
+    out = {}
+    for tag, m in (("unsharded", None), ("sharded", mesh)):
+        eng = engine(fleet_vcfg("f32", "torch", m, mode="rerank"),
+                     sampler=SAMPLERS.get("rerank_topk")(depth=SUBSET_DEPTH),
+                     baseline_run=baseline)
+        check(eng.stage.name == ("rerank_sharded" if m else "rerank"),
+              f"fleet (c) rerank: stage {eng.stage.name}")
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out[tag] = fleet_runs(eng, params, steps, ds.qrels, names)
+        out[tag]["seconds"] = time.perf_counter() - t0
+        counts = {k: n for k, n in all_launches().items() if n}
+        check(not counts, f"fleet (c) rerank {tag}: launches {counts}")
+        del eng
+    emit({"phase": "fleet", "part": "c", "mode": "rerank", "impl": "torch",
+          "mesh": dict(mesh.shape),
+          **held(out["unsharded"], out["sharded"], "sharded rerank"),
+          "total_s": {tag: r["total_s"] for tag, r in out.items()},
+          "seconds": {tag: r["seconds"] for tag, r in out.items()}})
+
+    # impl="cuda" with the mesh: the single-device kernel, 8 launches
+    eng = engine(fleet_vcfg("f32", "cuda", mesh))
+    check(eng.stage.name == "topk_cuda" and eng.query_mesh is mesh,
+          f"fleet (c) cuda: stage {eng.stage.name}")
+    reset_all_launches()
+    got = fleet_runs(eng, params, steps[:1], ds.qrels, names)
+    counts = {k: n for k, n in all_launches().items() if n}
+    n_chunks = -(-N_DOCS // 1024)
+    check(counts == {"topk_mips_f32": n_chunks},
+          f"fleet (c) cuda: launches {counts}, expected {n_chunks}")
+    main = {"runs": {steps[0]: read_trec_run(os.path.join(
+        WORK, "out_cuda_f32", f"asyncval_step{steps[0]}.trec"))},
+        "rows": main_results[("cuda", "f32")][:1]}
+    emit({"phase": "fleet", "part": "c", "mode": "retrieval", "impl": "cuda",
+          "mesh": dict(mesh.shape), "stage": eng.stage.name,
+          **held(main, got, "cuda with a mesh"), "launches": counts,
+          "total_s": got["total_s"]})
+    del eng, params
+
+
+def fleet_rounding_part(device, ds, spec, params):
+    """(c) Why a device scores all its shards' rows in one product, on
+    the first checkpoint at f32 (informational, no gate): the corpus
+    encoded 1024 and 256 rows a call and the queries 256 and 64 (the
+    rows that differ), and each chunk's scores as one 1024-column product
+    against four 256-column ones (the share of scores that differ, the
+    largest difference, the top-100 lists that move, and the median gap
+    between neighbouring top-100 scores)."""
+    from repro_torch.data.corpus import pad_batch
+    from repro_torch.kernels.topk_mips.ref import scores_ref, select_topk
+    from repro_torch.models.nn import to_torch_tree
+    p = to_torch_tree(params, device)
+    shards = math.prod(FLEET_MESH[0])
+
+    def encode(texts, max_len, rows):
+        out = []
+        for i in range(0, len(texts), rows):
+            t, m = pad_batch(texts[i:i + rows], max_len)
+            out.append(spec.encode_passage(p, torch.from_numpy(t).to(device),
+                                           torch.from_numpy(m).to(device)))
+        return torch.cat(out)
+
+    def scores(q, e, cols):
+        return torch.cat([scores_ref(q, e[i:i + cols]) for i in
+                          range(0, e.shape[0], cols)], dim=1)
+
+    def top(s):
+        idx = torch.arange(s.shape[1], device=device).expand(s.shape[0], -1)
+        return select_topk(s, idx, 100)[1]
+
+    with torch.inference_mode():
+        qt = [ds.queries[q] for q in ds.queries]
+        dt = [ds.corpus[d] for d in ds.corpus]
+        q_full, q_shard = (encode(qt, spec.q_max_len, 256),
+                           encode(qt, spec.q_max_len, 256 // shards))
+        e_full, e_shard = (encode(dt, spec.p_max_len, 1024),
+                           encode(dt, spec.p_max_len, 1024 // shards))
+        one, per_shard = (scores(q_full, e_full, 1024),
+                          scores(q_full, e_full, 1024 // shards))
+        ranked = torch.sort(one, dim=1, descending=True).values[:, :101]
+        emit({"phase": "fleet", "part": "c", "mode": "rounding",
+              "query_rows_differ": int((q_full != q_shard).any(1).sum()),
+              "corpus_rows_differ": int((e_full != e_shard).any(1).sum()),
+              "scores_differ_share": float((one != per_shard).float()
+                                           .mean()),
+              "scores_max_diff": float((one - per_shard).abs().max()),
+              "lists_moved_by_per_shard_products": int(
+                  (top(one) != top(per_shard)).any(1).sum()),
+              "lists": int(one.shape[0]),
+              "top100_neighbour_gap_median": float(
+                  (ranked[:, :-1] - ranked[:, 1:]).median())})
+
+
+def fleet_serve_part(device, ds, spec, step):
+    """(d) Serve phase d's 8,841,823 seeded unit rows x 768 (the same
+    generator and seed, drawn on the card) in a ``ServingIndex`` on the
+    four-shard mesh, ``impl="torch"``: the rows split over the shards, the
+    last shard holding 1 zero pad; 10 micro-batches of 8 queries at k=10
+    through ``ServingIndex.topk`` (over-request of k + 1, host pad
+    filter) with ids equal to the unsharded ``topk_exact`` on the card
+    and scores within 1e-5; ms per batch by CUDA events; no kernel
+    launch.  The index views the f32 matrix (only the padded last shard
+    is a copy), so the peak stays near 1.25 x 27.2 GB."""
+    from repro_torch.core.retrieval import topk_exact
+    from repro_torch.data.corpus import pad_batch
+    from repro_torch.distributed import compat
+    from repro_torch.models.nn import to_torch_tree
+    from repro_torch.serve import ServingIndex
+    from repro_torch.serve.index import place_rows
+    from repro_torch.ckpt import checkpoint as ckpt
+    shape, axes = FLEET_MESH
+    mesh = compat.make_mesh(shape, axes, [device] * math.prod(shape))
+    N, D, Q, k = MSMARCO_N, spec.dim, SERVE_BATCH, SERVE_K
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    emb = torch.randn((N, D), generator=gen, device=device)
+    emb.div_(emb.norm(dim=1, keepdim=True))
+    placed = place_rows(emb, mesh, axes)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    params = to_torch_tree(ckpt.restore(
+        os.path.join(WORK, "ckpts"), step,
+        template={"params": spec.param_shapes})[0]["params"], device)
+    index = ServingIndex(step=step, params=params, doc_ids=_RowIds(N),
+                         emb=placed, n_docs=N, score_dtype="f32",
+                         impl="torch", block=65536, build_s=t_build,
+                         mesh=mesh, axis_names=axes)
+    check(index.n_pad == (-N) % mesh.devices.size == 1,
+          f"fleet (d): n_pad {index.n_pad}")
+    check([int(s.shape[0]) for s in placed.shards]
+          == [(N + 1) // 4] * 4, "fleet (d): shard rows")
+    qids = sorted(ds.queries)[:FLEET_SERVE_BATCHES * Q]
+    check(len(qids) == FLEET_SERVE_BATCHES * Q, "fleet (d): too few queries")
+    reset_all_launches()
+    batch_ms, exact_ms, worst = [], [], 0.0
+    for b in range(FLEET_SERVE_BATCHES):
+        toks, mask = pad_batch([ds.queries[q] for q in
+                                qids[b * Q:(b + 1) * Q]], spec.q_max_len)
+        with torch.inference_mode():
+            q = spec.encode_query(params, torch.from_numpy(toks).to(device),
+                                  torch.from_numpy(mask).to(device))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        gs, gi = index.topk(q, k=k)
+        end.record()
+        end.synchronize()
+        batch_ms.append(start.elapsed_time(end))
+        start.record()
+        ws, wi = topk_exact(q, emb, k=k, block=65536)
+        end.record()
+        end.synchronize()
+        exact_ms.append(start.elapsed_time(end))
+        ws, wi = ws.cpu().numpy(), wi.cpu().numpy()
+        check(np.array_equal(gi, wi), f"fleet (d) batch {b}: ids differ "
+              "from the unsharded topk_exact")
+        err = float(np.abs(gs - ws).max())
+        check(err <= TOL, f"fleet (d) batch {b}: scores differ by {err:.3g}")
+        worst = max(worst, err)
+    counts = {key: n for key, n in all_launches().items() if n}
+    check(not counts, f"fleet (d): kernel launches {counts}")
+    emit({"phase": "fleet", "part": "d", "N": N, "D": D, "Q": Q, "k": k,
+          "mesh": dict(mesh.shape), "n_pad": index.n_pad,
+          "shard_rows": [int(s.shape[0]) for s in placed.shards],
+          "batches": FLEET_SERVE_BATCHES, "max_abs_err": worst,
+          "batch_ms": {"median": statistics.median(batch_ms),
+                       "min": min(batch_ms), "max": max(batch_ms)},
+          "unsharded_topk_exact_ms": {
+              "median": statistics.median(exact_ms), "min": min(exact_ms),
+              "max": max(exact_ms)},
+          "build_s": t_build,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del index, placed, emb, params
+
+
+# ---------------------------------------------------------------------------
 # phase 5c: the trainer and the asynchronous train -> validate loop
 # ---------------------------------------------------------------------------
 
@@ -3183,6 +3830,7 @@ def main(argv=None) -> int:
     flash_launches = {dt: None for dt in flash_rows}
     decode_launches = {dt: None for dt in decode_rows}
     serve_rows = {}
+    fleet_launches = {dt: None for dt in FLEET_DTYPES}
     if "--train-only" in argv:
         ds = write_dataset()
         lexical_subset(ds)
@@ -3191,12 +3839,17 @@ def main(argv=None) -> int:
         ds = write_dataset()
         launches, main_results = main_phase(device, ds)
         serve_rows = serve_phase(device, ds, main_results)
+    elif "--fleet-only" in argv:
+        ds = write_dataset()
+        launches, main_results = main_phase(device, ds)
+        fleet_launches = fleet_phase(device, ds, main_results)
     elif "--kernels-only" not in argv:
         encoder_phase(device)
         ds = write_dataset()
         launches, main_results = main_phase(device, ds)
         whole_launches = subset_phase(device, ds, main_results)
         serve_rows = serve_phase(device, ds, main_results)
+        fleet_launches = fleet_phase(device, ds, main_results)
         if "--trace" in argv:
             trace_phase()
         train_phase(device, ds, trace="--trace" in argv)
@@ -3213,6 +3866,8 @@ def main(argv=None) -> int:
         kernel_row(f"topk_mips_{dt}_serve", SOURCE, REPLACES[dt],
                    row["launches"], row)
         for dt, row in serve_rows.items()] + [
+        kernel_row(f"topk_mips_{dt}_fleet", SOURCE, REPLACES[dt],
+                   fleet_launches[dt], rows[dt]) for dt in FLEET_DTYPES] + [
         kernel_row(f"flash_attention_{dt}", FLASH_SOURCE, FLASH_REPLACES,
                    flash_launches[dt], row)
         for dt, row in flash_rows.items()] + [

@@ -28,10 +28,16 @@ and the telemetry flags (``--obs_trace``, ``--obs_report``,
 ``--serve_events``: after validation the control plane's pick, else the
 latest checkpoint, is promoted into a device-resident index and the query
 file is answered through it; with ``--watch`` every new pick hot-swaps in,
-and GC never deletes the checkpoint being served).  Flags of parts not yet
-ported raise ``NotImplementedError``: the fleet (``--worker``,
-``--worker_id``, ``--capabilities``, ``--lease_ttl``, ``--max_abandons``)
-and ``--scan_window``.
+and GC never deletes the checkpoint being served), and the validator
+fleet: ``--worker`` claims (step, task) units from the shared ledger work
+queue (``<run_name>_ledger.jsonl``) until the backlog drains (or forever,
+with ``--watch``), with ``--worker_id``, ``--capabilities`` (``mesh_size``
+defaults to ``torch.cuda.device_count()`` under ``--device cuda`` and to 1
+under ``--device cpu``), ``--lease_ttl`` and ``--max_abandons``; ``python
+-m repro_torch.launch.fleet --workers N -- python -m repro_torch.core.cli
+--worker ...`` runs N of them.  ``--scan_window`` (the reference's
+multi-chunk XLA dispatch) is not ported and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,10 +56,7 @@ from repro_torch.core.registry import (ENCODERS, ENGINES, IMPLS, MODES,
                                        register_encoder)
 
 #: flag -> its value when unused; any other value raises "not yet ported"
-_NOT_PORTED = {
-    "worker": False, "worker_id": None, "capabilities": None,
-    "lease_ttl": None, "max_abandons": None, "scan_window": None,
-}
+_NOT_PORTED = {"scan_window": None}
 
 
 @register_encoder("arch")
@@ -109,6 +112,72 @@ def _obs_finish(args, tel) -> None:
                   f"over {hist.count} verdicts")
         else:
             print("[obs] checkpoint-to-verdict: no verdicts observed")
+
+
+def _worker_main(args, suite, logger, ledger_path) -> int:
+    """Fleet worker mode (``--worker``): claim (step, task) units from the
+    shared ledger work queue until the backlog drains (or forever, with
+    ``--watch``).  Any worker also discovers checkpoints and publishes their
+    units; publishing is idempotent, so a fleet of bare CLI workers needs
+    no supervisor (``repro_torch.launch.fleet`` has one that also runs the
+    control plane)."""
+    from repro_torch.core.validator import ValidationLedger, ValidatorWorker
+    from repro_torch.core.watcher import CheckpointWatcher
+    from repro_torch.core.workqueue import WorkQueue, parse_capabilities
+
+    caps = parse_capabilities(args.capabilities)
+    caps.setdefault("mesh_size", torch.cuda.device_count()
+                    if args.device == "cuda" else 1)
+    worker_id = args.worker_id or f"worker-{os.getpid()}"
+    # the worker's telemetry rides in on the suite's ValidationConfig
+    tel = suite.vcfg.telemetry
+    queue = WorkQueue(ledger_path, worker_id, capabilities=caps,
+                      lease_ttl=args.lease_ttl,
+                      max_abandons=args.max_abandons, telemetry=tel)
+    spool = None
+    if args.handoff_spool:
+        from repro_torch.handoff import SnapshotSpool
+        spool = SnapshotSpool(args.handoff_spool)
+    worker = ValidatorWorker(
+        args.ckpts_dir, suite,
+        ledger=ValidationLedger(ledger_path,
+                                expected_tasks=suite.task_names,
+                                telemetry=tel),
+        queue=queue, logger=logger, worker_id=worker_id, telemetry=tel,
+        snapshots=spool)
+    watcher = CheckpointWatcher(args.ckpts_dir, telemetry=tel)
+    print(f"[asyncval] worker {worker_id} caps={caps} queue={ledger_path}",
+          file=sys.stderr)
+    done = 0
+    try:
+        while True:
+            if spool is not None:
+                # pre-durable snapshots publish their units at once; the
+                # (step, task) key dedupes the later watcher discovery
+                for step in spool.poll():
+                    queue.publish(suite.plan_units(step), source="snapshot")
+                    watcher.mark_seen(step)
+            for step in watcher.poll():
+                queue.publish(suite.plan_units(step))
+            if worker.run_once():
+                unit = worker.completed[-1]
+                done += 1
+                print(f"[asyncval] {worker_id} completed step {unit.step} "
+                      f"task {unit.task}", file=sys.stderr)
+                continue
+            state = queue.refresh()
+            if not args.watch and not state.claimable(caps) \
+                    and not state.blocked():
+                break               # backlog drained, nothing in flight
+            time.sleep(args.poll_interval if args.watch else 0.05)
+    except KeyboardInterrupt:
+        pass
+    print(f"[asyncval] worker {worker_id}: {done} units, "
+          f"{len(worker.errors)} errors", file=sys.stderr)
+    for step, err in worker.errors:
+        print(f"[asyncval] step {step} failed: {err}", file=sys.stderr)
+    _obs_finish(args, tel)
+    return 0 if not worker.errors else 1
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -268,12 +337,31 @@ def _parser() -> argparse.ArgumentParser:
                          "checkpoints by the control metric into a virtual "
                          "checkpoint, commit it and validate it through "
                          "the normal path (0 = off)")
-    for name, unused in _NOT_PORTED.items():
-        if unused is False:
-            ap.add_argument(f"--{name}", action="store_true",
-                            help="not yet ported")
-        else:
-            ap.add_argument(f"--{name}", default=None, help="not yet ported")
+    # -- validator fleet (repro_torch.core.workqueue) -----------------------
+    ap.add_argument("--worker", action="store_true",
+                    help="fleet worker mode: claim (step, task) work units "
+                         "from the shared ledger work queue instead of "
+                         "validating whole checkpoints; run N of these "
+                         "against one --ckpts_dir and ledger (see "
+                         "repro_torch.launch.fleet)")
+    ap.add_argument("--worker_id", default=None,
+                    help="this worker's name in claim records and ledger "
+                         "rows (default: worker-<pid>)")
+    ap.add_argument("--capabilities", default="",
+                    help="capability tags matched against unit "
+                         "requirements, as 'name=value,...' (e.g. "
+                         "'mesh_size=8,max_depth=100'); mesh_size defaults "
+                         "to torch.cuda.device_count() under --device cuda "
+                         "and to 1 under --device cpu")
+    ap.add_argument("--lease_ttl", type=int, default=16,
+                    help="claim lease time-to-live in ledger records (not "
+                         "seconds: no wall clock feeds fleet decisions); "
+                         "must match across the fleet")
+    ap.add_argument("--max_abandons", type=int, default=2,
+                    help="distributed retry budget: abandons of one unit "
+                         "before the fleet marks it failed; must match "
+                         "across the fleet")
+    ap.add_argument("--scan_window", default=None, help="not yet ported")
     return ap
 
 
@@ -354,7 +442,9 @@ def main(argv=None) -> int:
     tel = None
     if args.obs_trace or args.obs_report or args.obs_metrics:
         from repro_torch.obs import Telemetry
-        tel = Telemetry(args.obs_trace, process="cli",
+        tel = Telemetry(args.obs_trace,
+                        process=(args.worker_id or f"cli-{os.getpid()}")
+                        if args.worker else "cli",
                         attrs={"run": args.run_name})
 
     mmap_dir = args.mmap_dir
@@ -389,6 +479,11 @@ def main(argv=None) -> int:
             loggers.append(JSONLLogger(os.path.join(
                 logdir, f"{args.run_name}_metrics.jsonl")))
     os.makedirs(logdir, exist_ok=True)
+
+    if args.worker:
+        return _worker_main(args, suite, MultiLogger(*loggers),
+                            os.path.join(logdir,
+                                         f"{args.run_name}_ledger.jsonl"))
 
     control = None
     if cmetric is not None:

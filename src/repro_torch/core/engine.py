@@ -28,8 +28,17 @@ With a :class:`repro_torch.obs.Telemetry` on the suite's config the
 engines record the reference's ``encoded`` / ``staged`` / ``store_build``
 spans and the ``engine.*`` histograms, read at the clock points of the
 ledger ``timings`` (after the same stream synchronisations); without one
-they take no extra clock reads.  The sharded stages and the scan-window
-dispatch wait for later slices of the port.
+they take no extra clock reads.
+
+With a :class:`~repro_torch.distributed.compat.DeviceMesh` on the config
+(``ValidationConfig.mesh``) the engine shards: each staged chunk's rows are
+split over the mesh (:func:`~repro_torch.distributed.sharding.
+rows_sharding`), every shard encodes and scores its rows on its device,
+and the shards' results merge one mesh axis at a time, innermost first
+(:class:`ShardedStreamTopKStage`, :class:`ShardedStreamRerankStage`); the
+queries are encoded the same way.  This is the reference's ``shard_map``
+step as an explicit loop over the shards.  The scan-window dispatch is not
+ported.
 """
 
 from __future__ import annotations
@@ -50,9 +59,14 @@ from repro_torch.core.precision import chunk_scores, validate_score_dtype
 from repro_torch.core.registry import (ENGINES, IMPLS, MODES, STAGES,
                                        register_engine, register_impl,
                                        register_mode, register_stage)
-from repro_torch.core.retrieval import (pad_candidates, rank_candidates,
+from repro_torch.core.retrieval import (_hierarchical_slot_max,
+                                        _hierarchical_topk_merge,
+                                        pad_candidates, rank_candidates,
                                         rerank_run, retrieve_run)
 from repro_torch.data.corpus import Tokens, pad_batch
+from repro_torch.distributed.sharding import (ShardedRows,
+                                              replicated_sharding,
+                                              rows_sharding)
 from repro_torch.kernels.topk_mips import ops as mips_ops
 from repro_torch.kernels.topk_mips.ref import select_topk
 from repro_torch.models.nn import to_torch_tree
@@ -407,7 +421,7 @@ def plan_schedule(n_chunks: int) -> List[Tuple[int, int]]:
 
 
 def staged_batches(store: TokenStore, schedule: Sequence[Tuple[int, int]], *,
-                   device: torch.device, depth: int = 2
+                   device: torch.device, depth: int = 2, sharding=None
                    ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """Yield ``(tokens, mask)`` on ``device`` for each schedule entry, the
     copies issued ``depth`` batches ahead of the consumer.
@@ -419,24 +433,44 @@ def staged_batches(store: TokenStore, schedule: Sequence[Tuple[int, int]], *,
     allocator from reusing the buffer before the consumer is done.
     ``depth=1`` stages each batch just before it is used.  With an
     mmap-backed store only the staged chunks are ever read into host
-    memory."""
-    depth = max(1, depth)
-    cuda = device.type == "cuda"
-    copy_stream = torch.cuda.Stream(device) if cuda else None
+    memory.
 
-    def put(arr: np.ndarray) -> torch.Tensor:
+    ``sharding`` (a :class:`~repro_torch.distributed.sharding.RowsSharding`)
+    stages each batch's row blocks straight onto their shards' devices
+    instead, and yields :class:`~repro_torch.distributed.sharding.
+    ShardedRows`: the layout the sharded stages consume."""
+    depth = max(1, depth)
+    copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    def put(arr: np.ndarray, dev: torch.device):
         # a read-only memmap chunk is read into host memory here
         t = torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
-        return t.pin_memory().to(device, non_blocking=True) if cuda else t
+        if dev.type != "cuda":
+            return t, None
+        stream = copy_streams.get(dev)
+        if stream is None:
+            stream = copy_streams[dev] = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            t = t.pin_memory().to(dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return t, done
 
     def stage(ci: int):
-        if not cuda:
-            return put(store.tokens[ci]), put(store.mask[ci]), None
-        with torch.cuda.stream(copy_stream):
-            toks, mask = put(store.tokens[ci]), put(store.mask[ci])
-            done = torch.cuda.Event()
-            done.record(copy_stream)
-        return toks, mask, done
+        if sharding is None:
+            return put(store.tokens[ci], device), put(store.mask[ci], device)
+        return ([put(b, d) for b, d in zip(sharding.split(store.tokens[ci]),
+                                            sharding.devices)],
+                [put(b, d) for b, d in zip(sharding.split(store.mask[ci]),
+                                            sharding.devices)])
+
+    def ready(staged) -> torch.Tensor:
+        t, done = staged
+        if done is not None:
+            compute = torch.cuda.current_stream(t.device)
+            compute.wait_event(done)
+            t.record_stream(compute)
+        return t
 
     q: "collections.deque" = collections.deque()
     idx = 0
@@ -444,23 +478,65 @@ def staged_batches(store: TokenStore, schedule: Sequence[Tuple[int, int]], *,
         while idx < len(schedule) and len(q) < depth:
             q.append(stage(schedule[idx][0]))
             idx += 1
-        toks, mask, done = q.popleft()
-        if done is not None:
-            compute = torch.cuda.current_stream(device)
-            compute.wait_event(done)
-            toks.record_stream(compute)
-            mask.record_stream(compute)
-        yield toks, mask
+        toks, mask = q.popleft()
+        if sharding is None:
+            yield ready(toks), ready(mask)
+        else:
+            yield (ShardedRows([ready(t) for t in toks]),
+                   ShardedRows([ready(m) for m in mask]))
 
 
 def encode_store(encode_fn: Callable, params, store: TokenStore, *,
-                 device: torch.device) -> torch.Tensor:
-    """Encode a whole TokenStore (the queries) -> (n_texts, D) on device."""
-    outs = [encode_fn(params, toks, mask) for toks, mask in staged_batches(
-        store, plan_schedule(store.n_chunks), device=device)]
+                 device: torch.device, mesh=None,
+                 axis_names=None) -> torch.Tensor:
+    """Encode a whole TokenStore (the queries) -> (n_texts, D) on device.
+
+    With ``mesh`` each chunk's rows are split over ``axis_names`` (default:
+    every mesh axis) and each device encodes the rows of its shards in one
+    call, the params replicated there (:func:`device_batches`); the
+    embeddings are gathered onto ``device`` in shard order.
+    ``store.chunk`` must divide the shard count (``chunk_geometry`` rounds
+    the query chunk up to it)."""
+    sharding = replicas = None
+    if mesh is not None:
+        sharding = rows_sharding(mesh, axis_names)
+        replicas = replicated_sharding(mesh).put(params)
+    outs = []
+    for toks, mask in staged_batches(store, plan_schedule(store.n_chunks),
+                                     device=device, sharding=sharding):
+        if sharding is None:
+            outs.append(encode_fn(params, toks, mask))
+            continue
+        blocks = [None] * len(toks.shards)
+        for dev, sids, t, m in device_batches(toks, mask):
+            emb = encode_fn(replicas.on(dev), t, m).to(device)
+            for j, sid in enumerate(sids):
+                blocks[sid] = emb[j * toks.rows:(j + 1) * toks.rows]
+        outs.append(torch.cat(blocks))
     if not outs:
         return torch.zeros((0, 1), dtype=torch.float32, device=device)
     return torch.cat(outs, dim=0)[:store.n_texts]
+
+
+def device_batches(toks: ShardedRows, mask: ShardedRows):
+    """The shards of a staged chunk grouped by device: ``(device, shard
+    ids, tokens, mask)`` per distinct device, in mesh order, with the rows
+    of the device's shards concatenated in shard order.  A device computes
+    everything it holds in one encoder call and one score product: on a
+    mesh that repeats a device, its shards are one batch, so a one-device
+    mesh runs the unsharded products (the encoder's rows do not depend on
+    the batch, an f32 product's rounding does depend on its shape), while
+    the shard split, the per-shard offsets and the merges stay per
+    shard."""
+    groups: Dict[torch.device, List[int]] = {}
+    for sid, t in enumerate(toks.shards):
+        groups.setdefault(t.device, []).append(sid)
+    for dev, sids in groups.items():
+        if len(sids) == 1:
+            yield dev, sids, toks.shards[sids[0]], mask.shards[sids[0]]
+        else:
+            yield (dev, sids, torch.cat([toks.shards[i] for i in sids]),
+                   torch.cat([mask.shards[i] for i in sids]))
 
 
 # ---------------------------------------------------------------------------
@@ -661,37 +737,173 @@ class StreamRerankStage(Stage):
         return rank_candidates(self.query_ids, carry, self.cands, k=self.k)
 
 
+class _MeshOperands:
+    """The mesh-invariant operands of a sharded step, the params and the
+    query matrix, on every device of the mesh: placed once per run (the
+    engine hands every step of a run the same two objects) and dropped at
+    ``finalize``."""
+
+    def __init__(self, mesh):
+        self._place = replicated_sharding(mesh)
+        self._key: Optional[tuple] = None
+        self._copies: Optional[tuple] = None
+
+    def get(self, params, q_emb):
+        if self._key is None or self._key[0] is not params \
+                or self._key[1] is not q_emb:
+            self._key = (params, q_emb)
+            self._copies = (self._place.put(params), self._place.put(q_emb))
+        return self._copies
+
+    def clear(self) -> None:
+        self._key = self._copies = None
+
+
+class ShardedStreamTopKStage(StreamTopKStage):
+    """Retrieval mode on the validator mesh: each chunk's rows are split
+    over ``axis_names`` (the engine stages them so, ``input_sharding``);
+    each device encodes and scores the rows of its shards
+    (:func:`device_batches`), every shard takes the top k of its rows, the
+    shards' candidates merge one mesh axis at a time, innermost first
+    (:func:`~repro_torch.core.retrieval._hierarchical_topk_merge`, as
+    :func:`~repro_torch.core.retrieval.topk_sharded` merges), and the merge
+    into the carry happens on the mesh's first device.  Every selection is
+    stable, so the carry equals the unsharded stage's wherever the shards'
+    scores equal its own: bit for bit on a one-device mesh."""
+
+    name = "topk_sharded"
+
+    def __init__(self, encode_fn: Callable, mesh, *, k: int,
+                 query_ids: List[str], doc_ids: List[str],
+                 axis_names=None, score_dtype: str = "f32"):
+        super().__init__(encode_fn, k=k, query_ids=query_ids,
+                         doc_ids=doc_ids, score_dtype=score_dtype)
+        self.axis_names = tuple(axis_names or mesh.axis_names)
+        self.input_sharding = rows_sharding(mesh, self.axis_names)
+        self._sizes = [mesh.shape[a] for a in self.axis_names]
+        self._operands = _MeshOperands(mesh)
+
+    def step(self, params, q_emb, carry, toks, mask, base, n_valid):
+        run_s, run_i = carry
+        p_on, q_on = self._operands.get(params, q_emb)
+        rows = toks.rows
+        parts: List[Optional[tuple]] = [None] * len(toks.shards)
+        for dev, sids, t, m in device_batches(toks, mask):
+            emb = self.encode_fn(p_on.on(dev), t, m)      # (rows x shards, D)
+            # per-row quantization: a shard's narrow-dtype scores equal the
+            # unsharded stage's slice
+            s_dev = chunk_scores(q_on.on(dev), emb, self.score_dtype)
+            for j, sid in enumerate(sids):
+                s = s_dev[:, j * rows:(j + 1) * rows]
+                col = sid * rows + torch.arange(rows, dtype=torch.int32,
+                                                device=dev)
+                s = s.masked_fill((col >= n_valid)[None, :], float("-inf"))
+                bs, bi = select_topk(s, col.expand(s.shape[0], -1),
+                                     min(self.k, rows))
+                parts[sid] = (bs, bi + base)
+        bs, bi = _hierarchical_topk_merge(parts, self._sizes, self.k)
+        return select_topk(torch.cat([run_s, bs.to(run_s.device)], dim=1),
+                           torch.cat([run_i, bi.to(run_i.device)], dim=1),
+                           self.k)
+
+    def finalize(self, carry):
+        self._operands.clear()
+        return super().finalize(carry)
+
+
+class ShardedStreamRerankStage(StreamRerankStage):
+    """Rerank / average-rank modes on the validator mesh, mirroring
+    :class:`ShardedStreamTopKStage`: each device encodes and scores the
+    rows of its shards, and every shard masks its candidate-member rows and
+    writes them into its view of the ``(Q, Cmax)`` slot carry.  Each slot names one corpus row, which
+    lies on one shard of one chunk, so the cross-shard merge is an
+    elementwise max per mesh axis, innermost first (:func:`~repro_torch.
+    core.retrieval._hierarchical_slot_max`): the written score where a
+    shard hit, the carry everywhere else.  Carry, finalize and chunk
+    skipping are the unsharded stage's, so the runs are its runs bit for
+    bit."""
+
+    name = "rerank_sharded"
+
+    def __init__(self, encode_fn: Callable, mesh, *, k: int,
+                 query_ids: List[str], doc_ids: List[str],
+                 per_query: Dict[str, List[str]],
+                 store: Optional[TokenStore] = None, axis_names=None,
+                 score_dtype: str = "f32", compact: bool = False):
+        super().__init__(encode_fn, k=k, query_ids=query_ids,
+                         doc_ids=doc_ids, per_query=per_query, store=store,
+                         score_dtype=score_dtype, compact=compact)
+        self.axis_names = tuple(axis_names or mesh.axis_names)
+        self.input_sharding = rows_sharding(mesh, self.axis_names)
+        self._sizes = [mesh.shape[a] for a in self.axis_names]
+        self._operands = _MeshOperands(mesh)
+
+    def step(self, params, q_emb, carry, toks, mask, base, n_valid):
+        rows = toks.rows
+        chunk = rows * len(toks.shards)
+        ci = base // (self.cmap.chunk if self.cmap is not None
+                      else max(chunk, 1))
+        host_mask = self.cmap.row_mask[ci] if self.cmap is not None \
+            else np.ones((chunk,), bool)
+        p_on, q_on = self._operands.get(params, q_emb)
+        parts: List[Optional[torch.Tensor]] = [None] * len(toks.shards)
+        for dev, sids, t, m in device_batches(toks, mask):
+            emb = self.encode_fn(p_on.on(dev), t, m)
+            s_dev = chunk_scores(q_on.on(dev), emb, self.score_dtype)
+            cand_idx = self._on_device("cand_idx", self.cand_idx, dev)
+            for j, sid in enumerate(sids):
+                s = s_dev[:, j * rows:(j + 1) * rows]
+                col = sid * rows + torch.arange(rows, device=dev)
+                keep = self._on_device(
+                    ("rows", ci if self.cmap is not None else -1, sid),
+                    host_mask[sid * rows:(sid + 1) * rows], dev) \
+                    & (col < n_valid)
+                s = s.masked_fill(~keep[None, :], float("-inf"))
+                pos = cand_idx - base - sid * rows           # shard-local
+                hit = (cand_idx >= 0) & (cand_idx - base < n_valid) \
+                    & (pos >= 0) & (pos < rows)
+                g = torch.gather(s, 1, pos.clamp(0, rows - 1).long())
+                parts[sid] = torch.where(hit, g, carry.to(dev))
+        return _hierarchical_slot_max(parts, self._sizes).to(carry.device)
+
+    def finalize(self, carry):
+        self._operands.clear()
+        return super().finalize(carry)
+
+
 # ---------------------------------------------------------------------------
 # Registry wiring: modes route to impls route to stage names
 # ---------------------------------------------------------------------------
 
 
 @register_impl("torch")
-def _route_impl_torch() -> str:
-    return "topk_torch"
+def _route_impl_torch(*, mesh=None) -> str:
+    return "topk_sharded" if mesh is not None else "topk_torch"
 
 
 @register_impl("cuda")
-def _route_impl_cuda() -> str:
+def _route_impl_cuda(*, mesh=None) -> str:
+    # the topk_mips chunk-carry kernel is single-device: a mesh does not
+    # override it (mesh users pick impl="torch", the sharded path)
     return "topk_cuda"
 
 
 @register_mode("retrieval")
-def _route_mode_retrieval(*, impl: str, per_query=None) -> str:
-    return IMPLS.get(impl)()
+def _route_mode_retrieval(*, impl: str, mesh=None, per_query=None) -> str:
+    return IMPLS.get(impl)(mesh=mesh)
 
 
 @register_mode("rerank")
 @register_mode("average_rank")
-def _route_mode_rerank(*, impl: str, per_query=None) -> str:
+def _route_mode_rerank(*, impl: str, mesh=None, per_query=None) -> str:
     if not per_query:           # no candidate lists -> plain retrieval path
-        return IMPLS.get(impl)()
-    return "rerank"
+        return IMPLS.get(impl)(mesh=mesh)
+    return "rerank_sharded" if mesh is not None else "rerank"
 
 
 @register_stage("topk_torch")
 def _stage_topk_torch(encode_fn, *, k, query_ids, doc_ids, per_query=None,
-                      store=None, score_dtype="f32",
+                      mesh=None, store=None, score_dtype="f32",
                       rerank_compact=False) -> Stage:
     return StreamTopKStage(encode_fn, k=k, query_ids=query_ids,
                            doc_ids=doc_ids, score_dtype=score_dtype)
@@ -699,15 +911,23 @@ def _stage_topk_torch(encode_fn, *, k, query_ids, doc_ids, per_query=None,
 
 @register_stage("topk_cuda")
 def _stage_topk_cuda(encode_fn, *, k, query_ids, doc_ids, per_query=None,
-                     store=None, score_dtype="f32",
+                     mesh=None, store=None, score_dtype="f32",
                      rerank_compact=False) -> Stage:
     return CudaStreamTopKStage(encode_fn, k=k, query_ids=query_ids,
                                doc_ids=doc_ids, score_dtype=score_dtype)
 
 
+@register_stage("topk_sharded")
+def _stage_topk_sharded(encode_fn, *, k, query_ids, doc_ids, per_query=None,
+                        mesh=None, store=None, score_dtype="f32",
+                        rerank_compact=False) -> Stage:
+    return ShardedStreamTopKStage(encode_fn, mesh, k=k, query_ids=query_ids,
+                                  doc_ids=doc_ids, score_dtype=score_dtype)
+
+
 @register_stage("rerank")
 def _stage_rerank(encode_fn, *, k, query_ids, doc_ids, per_query=None,
-                  store=None, score_dtype="f32",
+                  mesh=None, store=None, score_dtype="f32",
                   rerank_compact=True) -> Stage:
     return StreamRerankStage(encode_fn, k=max(k, 1000), query_ids=query_ids,
                              doc_ids=doc_ids, per_query=per_query,
@@ -715,21 +935,36 @@ def _stage_rerank(encode_fn, *, k, query_ids, doc_ids, per_query=None,
                              compact=rerank_compact)
 
 
+@register_stage("rerank_sharded")
+def _stage_rerank_sharded(encode_fn, *, k, query_ids, doc_ids,
+                          per_query=None, mesh=None, store=None,
+                          score_dtype="f32", rerank_compact=True) -> Stage:
+    return ShardedStreamRerankStage(encode_fn, mesh, k=max(k, 1000),
+                                    query_ids=query_ids, doc_ids=doc_ids,
+                                    per_query=per_query, store=store,
+                                    score_dtype=score_dtype,
+                                    compact=rerank_compact)
+
+
 def make_stage(encode_fn: Callable, *, mode: str, impl: str, k: int,
                query_ids: List[str], doc_ids: List[str],
                per_query: Optional[Dict[str, List[str]]] = None,
-               store: Optional[TokenStore] = None,
+               mesh=None, store: Optional[TokenStore] = None,
                score_dtype: str = "f32",
                rerank_compact: bool = True) -> Stage:
-    """Route (mode, impl) to a registered Stage: the ``mode`` route picks a
-    stage name (through the ``impl`` route for retrieval, and for rerank
-    modes without candidate lists), the name a stage factory.  ``store``,
-    the corpus TokenStore, lets the rerank stage skip candidate-free chunks
-    (and, with ``rerank_compact``, pack sparse candidate rows).  Unknown
-    names raise listing the registered alternatives."""
-    name = MODES.get(mode)(impl=impl, per_query=per_query)
+    """Route (mode, impl, mesh) to a registered Stage: the ``mode`` route
+    picks a stage name (through the ``impl`` route for retrieval, and for
+    rerank modes without candidate lists), the name a stage factory.  A
+    ``mesh`` (:class:`~repro_torch.distributed.compat.DeviceMesh`) routes
+    ``impl="torch"`` retrieval to ``topk_sharded`` and the rerank modes to
+    ``rerank_sharded``; ``impl="cuda"`` stays on the single-device kernel.
+    ``store``, the corpus TokenStore, lets the rerank stages skip
+    candidate-free chunks (and, with ``rerank_compact``, pack sparse
+    candidate rows).  Unknown names raise listing the registered
+    alternatives."""
+    name = MODES.get(mode)(impl=impl, mesh=mesh, per_query=per_query)
     return STAGES.get(name)(encode_fn, k=k, query_ids=query_ids,
-                            doc_ids=doc_ids, per_query=per_query,
+                            doc_ids=doc_ids, per_query=per_query, mesh=mesh,
                             store=store, score_dtype=score_dtype,
                             rerank_compact=rerank_compact)
 
@@ -743,13 +978,16 @@ class StreamingEngine:
     """Drive a Stage over a TokenStore: peak embedding memory is
     O(chunk x D + Q x k); ``staging_depth`` batches are staged ahead.
     Stages with ``wants_chunk`` (rerank) prune the schedule before staging,
-    so skipped chunks are never read off the store."""
+    so skipped chunks are never read off the store.  A stage with an
+    ``input_sharding`` (the sharded stages) gets its chunks staged shard by
+    shard; ``query_mesh`` shards the query encoding the same way."""
 
     name = "streaming"
 
     def __init__(self, spec, doc_store: TokenStore, query_store: TokenStore,
                  stage: Stage, *, staging: str = "double_buffered",
-                 staging_depth: int = 2, telemetry=None):
+                 staging_depth: int = 2, query_mesh=None,
+                 query_axis_names=None, telemetry=None):
         if staging not in ("double_buffered", "sync"):
             raise ValueError(f"unknown staging {staging!r} "
                              "(expected 'double_buffered' or 'sync')")
@@ -762,12 +1000,21 @@ class StreamingEngine:
         self.stage = stage
         self.staging = staging
         self.staging_depth = staging_depth
+        self.query_mesh = query_mesh
+        self.query_axis_names = query_axis_names
         # nullable repro_torch.obs.Telemetry: observation only
         self.telemetry = telemetry
 
     @property
     def score_dtype(self) -> str:
         return getattr(self.stage, "score_dtype", "f32")
+
+    def _synchronize(self, device: torch.device) -> None:
+        """:func:`synchronize` on ``device`` and on every mesh device."""
+        devices = [device] + (self.query_mesh.distinct_devices()
+                              if self.query_mesh is not None else [])
+        for dev in dict.fromkeys(devices):
+            synchronize(dev)
 
     @torch.inference_mode()
     def run(self, params) -> Tuple[Run, Scores, Dict[str, float]]:
@@ -777,8 +1024,9 @@ class StreamingEngine:
         t0 = time.time()
         m0 = time.monotonic() if tel is not None else 0.0
         q_emb = encode_store(self.spec.encode_query, params, self.query_store,
-                             device=device)
-        synchronize(device)
+                             device=device, mesh=self.query_mesh,
+                             axis_names=self.query_axis_names)
+        self._synchronize(device)
         t_query = time.time() - t0
         if tel is not None:
             tel.record("encoded", m0, t_query, role="query")
@@ -794,7 +1042,8 @@ class StreamingEngine:
             schedule = [(ci, w) for ci, w in schedule if wants(ci)]
         batches = staged_batches(
             store, schedule, device=device,
-            depth=1 if self.staging == "sync" else self.staging_depth)
+            depth=1 if self.staging == "sync" else self.staging_depth,
+            sharding=getattr(self.stage, "input_sharding", None))
         # explicit next() so telemetry can time the staging (host time to
         # take the next staged batch) apart from the step's dispatch; on a
         # card both are host times, the device work is in t_stream
@@ -814,7 +1063,7 @@ class StreamingEngine:
                                     store.chunk * ci, store.rows_valid(ci))
             if tel is not None:
                 step_hist.observe(time.monotonic() - m1)
-        synchronize(device)
+        self._synchronize(device)
         t_stream = time.time() - t0
         if tel is not None:
             stream_total = max(time.monotonic() - m_stream, 1e-12)
@@ -854,7 +1103,7 @@ class MaterializedEngine:
     def __init__(self, spec, doc_texts: List[Tokens], query_texts: List[Tokens],
                  *, mode: str, k: int, impl: str, batch_size: int,
                  query_ids: List[str], doc_ids: List[str],
-                 per_query: Optional[Dict[str, List[str]]] = None,
+                 per_query: Optional[Dict[str, List[str]]] = None, mesh=None,
                  rerank_block: Optional[int] = None,
                  score_dtype: str = "f32", telemetry=None):
         self.telemetry = telemetry
@@ -868,6 +1117,7 @@ class MaterializedEngine:
         self.query_ids = query_ids
         self.doc_ids = doc_ids
         self.per_query = per_query
+        self.mesh = mesh
         # queries per rerank candidate gather (None = sized from
         # rerank_run's memory budget)
         self.rerank_block = rerank_block
@@ -909,6 +1159,7 @@ class MaterializedEngine:
         else:
             run, scores = retrieve_run(self.query_ids, q_emb, self.doc_ids,
                                        c_emb, k=self.k, impl=self.impl,
+                                       mesh=self.mesh,
                                        score_dtype=self.score_dtype)
         synchronize(device)
         t_retrieve = time.time() - t0
@@ -932,12 +1183,19 @@ class ValidationStore:
     query_store: Optional[TokenStore] = None
 
 
-def chunk_geometry(vcfg, n_docs: int) -> Tuple[int, int]:
+def chunk_geometry(vcfg, n_docs: int, mesh=None) -> Tuple[int, int]:
     """(corpus chunk rows, query chunk rows): ``chunk_size`` defaults to
-    ``batch_size``."""
+    ``batch_size``.  With a mesh both are rounded up to a multiple of the
+    shard count, so every shard sees equal fixed-shape rows, in every
+    mode."""
     chunk = vcfg.chunk_size or vcfg.batch_size
     chunk = max(1, min(chunk, max(n_docs, 1)))
-    return chunk, max(1, vcfg.batch_size)
+    q_chunk = max(1, vcfg.batch_size)
+    if mesh is not None:
+        n_shards = mesh.devices.size
+        chunk = -(-chunk // n_shards) * n_shards
+        q_chunk = -(-q_chunk // n_shards) * n_shards
+    return chunk, q_chunk
 
 
 def doc_cache_dir(mmap_dir: Optional[str], index: int = 0) -> Optional[str]:
@@ -954,7 +1212,8 @@ def doc_cache_dir(mmap_dir: Optional[str], index: int = 0) -> Optional[str]:
 @register_engine("streaming")
 def make_streaming_engine(spec, store: ValidationStore, vcfg):
     """The default encode->fold data path (see module docstring)."""
-    chunk, q_chunk = chunk_geometry(vcfg, len(store.doc_texts))
+    mesh = vcfg.mesh
+    chunk, q_chunk = chunk_geometry(vcfg, len(store.doc_texts), mesh)
     tel = vcfg.telemetry
     doc_store = store.doc_store
     if doc_store is None:
@@ -978,11 +1237,13 @@ def make_streaming_engine(spec, store: ValidationStore, vcfg):
     stage = make_stage(spec.encode_passage, mode=vcfg.mode, impl=vcfg.impl,
                        k=vcfg.k, query_ids=store.query_ids,
                        doc_ids=store.doc_ids, per_query=store.per_query,
-                       store=doc_store, score_dtype=vcfg.score_dtype,
+                       mesh=mesh, store=doc_store,
+                       score_dtype=vcfg.score_dtype,
                        rerank_compact=vcfg.rerank_compact)
     return StreamingEngine(spec, doc_store, query_store, stage,
                            staging=vcfg.staging,
-                           staging_depth=vcfg.staging_depth, telemetry=tel)
+                           staging_depth=vcfg.staging_depth, query_mesh=mesh,
+                           telemetry=tel)
 
 
 # the suite routes the corpus TokenStore through its shared cache for every
@@ -998,7 +1259,7 @@ def make_materialized_engine(spec, store: ValidationStore, vcfg):
                               batch_size=vcfg.batch_size,
                               query_ids=store.query_ids,
                               doc_ids=store.doc_ids,
-                              per_query=store.per_query,
+                              per_query=store.per_query, mesh=vcfg.mesh,
                               rerank_block=vcfg.rerank_block,
                               score_dtype=vcfg.score_dtype,
                               telemetry=vcfg.telemetry)

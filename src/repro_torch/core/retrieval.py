@@ -10,27 +10,37 @@ The materialized engine's scoring, on the device its embeddings live on:
                             ``impl="cuda"`` calls the hand-written topk_mips
                             kernels on the whole corpus
                             (:func:`repro_torch.kernels.topk_mips.ops.
-                            topk_mips`), ``impl="torch"`` calls
-                            :func:`topk_exact`.
+                            topk_mips`; a mesh does not change that),
+                            ``impl="torch"`` calls :func:`topk_exact`, or
+                            :func:`topk_sharded` with a ``mesh``.
+  * :func:`topk_sharded`  — the corpus rows split over a
+                            :class:`~repro_torch.distributed.compat.
+                            DeviceMesh`: each shard's local
+                            :func:`topk_exact`, then a merge of the
+                            shards' candidates one mesh axis at a time,
+                            innermost first (the reference's hierarchical
+                            all-gather), on the first shard's device.
   * :func:`rerank_run`    — RocketQA-style rerank: score only each query's
                             candidate list, one query block at a time, and
                             select through :func:`rank_candidates`, the
                             stable selection the streaming rerank stage
                             finalizes through as well.
 
-The sharded retrieval of the reference (``topk_sharded``) is not ported
-yet.
+Every selection is stable (:func:`~repro_torch.kernels.topk_mips.ref.
+select_topk`): on equal scores the lower position wins, as ``lax.top_k``
+orders the reference's, so duplicate rows tie-break as there.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.precision import (chunk_scores, quantize_int8,
                                         validate_score_dtype)
+from repro_torch.distributed.sharding import ShardedRows, rows_sharding
 from repro_torch.kernels.topk_mips.ref import select_topk
 
 Run = Dict[str, List[str]]
@@ -71,6 +81,82 @@ def topk_exact(q_emb: torch.Tensor, c_emb: torch.Tensor, *, k: int,
     return run_s, run_i
 
 
+def _hierarchical_topk_merge(parts: Sequence[Tuple[torch.Tensor,
+                                                  torch.Tensor]],
+                             sizes: Sequence[int], k: int):
+    """Reduce per-shard ``(scores (Q, kk), ids (Q, kk))`` candidates, in
+    shard order over mesh axes of ``sizes`` (row-major), to the global
+    ``(Q, <= k)`` top-k, one axis at a time, innermost first: the members
+    of a group along an axis are concatenated in their axis order
+    (``[shard 0's kk | shard 1's kk | ...]``) on the first member's device
+    and cut to k by the stable selection, so equal scores keep the lower
+    shard, as ``lax.top_k`` after the reference's ``all_gather`` does."""
+    parts = list(parts)
+    for n in reversed(tuple(sizes)):
+        merged = []
+        for g in range(0, len(parts), n):
+            group = parts[g:g + n]
+            dev = group[0][0].device
+            s = torch.cat([p[0].to(dev) for p in group], dim=1)
+            i = torch.cat([p[1].to(dev) for p in group], dim=1)
+            merged.append(select_topk(s, i, min(k, s.shape[1])))
+        parts = merged
+    return parts[0]
+
+
+def _hierarchical_slot_max(parts: Sequence[torch.Tensor],
+                           sizes: Sequence[int]) -> torch.Tensor:
+    """Slot-aligned sibling of :func:`_hierarchical_topk_merge` for the
+    sharded rerank stage: per-shard ``(Q, Cmax)`` candidate-score matrices
+    already share the slot grid (each slot names one corpus row, which
+    lies on one shard), so the merge is an elementwise max, one mesh axis
+    at a time, innermost first (the reference's ``pmax`` per axis), on the
+    first member's device."""
+    parts = list(parts)
+    for n in reversed(tuple(sizes)):
+        merged = []
+        for g in range(0, len(parts), n):
+            dev = parts[g].device
+            acc = parts[g]
+            for p in parts[g + 1:g + n]:
+                acc = torch.maximum(acc, p.to(dev))
+            merged.append(acc)
+        parts = merged
+    return parts[0]
+
+
+def topk_sharded(mesh, q_emb: torch.Tensor, c_emb, *, k: int,
+                 axis_names: Sequence[str] = ("data", "model"),
+                 block: int = 4096, score_dtype: str = "f32"):
+    """Exact top-k with the corpus rows split over ``axis_names`` of
+    ``mesh``.  ``c_emb`` is a ``(N, D)`` tensor, placed here with
+    :func:`~repro_torch.distributed.sharding.rows_sharding` (N must divide
+    the shards: pad first), or rows placed so already
+    (:class:`~repro_torch.distributed.sharding.ShardedRows`).
+
+    Each shard takes the top ``min(k, rows)`` of its rows with
+    :func:`topk_exact` (per-row quantization, so a narrow dtype's scores
+    do not depend on the shard), offsets its ids by ``shard * rows``, and
+    :func:`_hierarchical_topk_merge` reduces the candidates -> ``(scores
+    (Q, k), ids (Q, k))`` on the first shard's device."""
+    validate_score_dtype(score_dtype)
+    names = tuple(axis_names)
+    placement = rows_sharding(mesh, names)
+    c = c_emb if isinstance(c_emb, ShardedRows) else placement.put(c_emb)
+    if len(c.shards) != placement.n_shards:
+        raise ValueError(f"{len(c.shards)} corpus shards for a mesh of "
+                         f"{placement.n_shards} over {names}")
+    rows = c.rows
+    kk = min(k, rows)
+    parts = []
+    for sid, shard in enumerate(c.shards):
+        s, i = topk_exact(q_emb.to(shard.device), shard, k=kk, block=block,
+                          score_dtype=score_dtype)
+        parts.append((s, i + sid * rows))
+    return _hierarchical_topk_merge(parts, [mesh.shape[a] for a in names],
+                                    k)
+
+
 def _as_tensor(x, device=None) -> torch.Tensor:
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(np.asarray(x, np.float32)))
@@ -78,12 +164,14 @@ def _as_tensor(x, device=None) -> torch.Tensor:
 
 
 def retrieve_run(query_ids: Sequence[str], q_emb, doc_ids: Sequence[str],
-                 c_emb, *, k: int, impl: str = "torch", block: int = 4096,
-                 score_dtype: str = "f32"):
+                 c_emb, *, k: int, impl: str = "torch", mesh=None,
+                 block: int = 4096, score_dtype: str = "f32"):
     """Build a ``{qid: [docid, ...]}`` run and its scores from embeddings,
     scored on ``c_emb``'s device.  ``impl="cuda"`` is one call of the
     topk_mips kernels over the whole corpus (its plain version for CPU
-    tensors); ``impl="torch"`` is :func:`topk_exact`."""
+    tensors), with or without a ``mesh``: the kernel is single-device, as
+    the reference's ``pallas`` impl is; ``impl="torch"`` is
+    :func:`topk_sharded` over ``mesh``, else :func:`topk_exact`."""
     validate_score_dtype(score_dtype)
     if impl not in IMPLS:
         raise ValueError(f"unknown retrieval impl {impl!r} "
@@ -94,6 +182,9 @@ def retrieve_run(query_ids: Sequence[str], q_emb, doc_ids: Sequence[str],
         from repro_torch.kernels.topk_mips import ops as mips_ops
         scores, idx = mips_ops.topk_mips(q.contiguous(), c.contiguous(),
                                          k=k, score_dtype=score_dtype)
+    elif mesh is not None:
+        scores, idx = topk_sharded(mesh, q, c, k=k, block=block,
+                                   score_dtype=score_dtype)
     else:
         scores, idx = topk_exact(q, c, k=k, block=block,
                                  score_dtype=score_dtype)

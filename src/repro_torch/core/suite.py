@@ -40,6 +40,7 @@ class ValidationConfig:
     k: int = 100                     # retrieval cut-off
     batch_size: int = 64
     impl: str = "torch"              # torch | cuda (the topk_mips kernels)
+    mesh: Any = None                 # optional DeviceMesh: sharded path
     engine: str = "streaming"        # streaming | materialized
     chunk_size: Optional[int] = None  # streaming chunk rows; None -> batch_size
     staging: str = "double_buffered"  # double_buffered | sync host->device
@@ -73,6 +74,9 @@ class ValidationResult:
     engine: str = ""
     score_dtype: str = "f32"
     task: str = "default"
+    # the fleet worker that scored the row ("" outside a fleet: the key is
+    # then left out of the ledger row)
+    worker_id: str = ""
     # "snapshot" when scored from a pre-durable hand-off snapshot, "" when
     # restored from the durable checkpoint; ledgered only when "snapshot"
     handoff: str = ""
@@ -224,7 +228,7 @@ class ValidationSuite:
 
     def _store_key(self, task: ValidationTask, data: ValidationStore,
                    tcfg: ValidationConfig) -> tuple:
-        chunk, _ = chunk_geometry(tcfg, len(data.doc_texts))
+        chunk, _ = chunk_geometry(tcfg, len(data.doc_texts), tcfg.mesh)
         ids = hashlib.sha1("\x00".join(data.doc_ids).encode()).hexdigest()
         return (id(task.corpus), ids, chunk, self.spec.p_max_len,
                 tcfg.token_backing, tcfg.token_fingerprint)
@@ -240,7 +244,7 @@ class ValidationSuite:
             if tcfg.token_backing == "mmap" and not tcfg.mmap_dir:
                 raise ValueError("token_backing='mmap' needs mmap_dir")
             index = self._store_order.setdefault(key, len(self._store_order))
-            chunk, _ = chunk_geometry(tcfg, len(data.doc_texts))
+            chunk, _ = chunk_geometry(tcfg, len(data.doc_texts), tcfg.mesh)
             tel = self.vcfg.telemetry
             with tel.span("store_build", task=task.name,
                           n_docs=len(data.doc_texts),
@@ -281,10 +285,15 @@ class ValidationSuite:
     def plan_units(self, step: int):
         """The checkpoint's validation work as one
         :class:`~repro_torch.core.workqueue.WorkUnit` per task, in task
-        declaration order."""
+        declaration order (``validate_params`` runs this plan in-line, so a
+        fleet draining the units computes the same rows).  ``mesh_size``
+        is the task config's mesh size (``mesh.devices.size``, 1
+        unsharded), under any explicit ``ValidationTask.requires``."""
         units = []
         for name, task in self.tasks.items():
-            requires = {"mesh_size": 1}
+            mesh = self._task_cfg(task).mesh
+            requires = {"mesh_size": (mesh.devices.size
+                                      if mesh is not None else 1)}
             requires.update(task.requires or {})
             units.append(WorkUnit.make(step, name, requires))
         return units

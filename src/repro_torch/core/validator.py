@@ -6,16 +6,22 @@ validation is appended to a ledger file (schema v2: one row per step and
 task, with the JAX package's keys), so a restarted validator skips ledgered
 steps.
 
-This is the solo path of ``repro/core/validator.py``, with its telemetry
-hooks (spans, the checkpoint-to-verdict histogram; observation only: the
-ledger's bytes are the same with telemetry on and off), the control-plane
-hook (``controller=``, :class:`repro_torch.control.ControlPlane`) and the
-lazy snapshot hand-off (``snapshots=``, :mod:`repro_torch.handoff`); the
-fleet work queue waits for a later slice of the port.  Started as a thread
-(:meth:`AsyncValidator.start`) on a CUDA device, the validation loop runs
-on its own CUDA stream, so its kernels (and the upload of a snapshot's or
-a restored checkpoint's params) can overlap a trainer's on the same card
-and its clock reads wait for its own work only.
+The port of ``repro/core/validator.py``: the solo validator with its
+telemetry hooks (spans, the checkpoint-to-verdict histogram; observation
+only: the ledger's bytes are the same with telemetry on and off), the
+control-plane hook (``controller=``, :class:`repro_torch.control.
+ControlPlane`) and the lazy snapshot hand-off (``snapshots=``,
+:mod:`repro_torch.handoff`), and the fleet worker: a
+:class:`ValidatorWorker` with a :class:`~repro_torch.core.workqueue.
+WorkQueue` claims (step, task) units from the shared ledger, heartbeats
+its lease while the engine runs, appends the result row and completes the
+unit (:meth:`ValidatorWorker.run_once`, :meth:`ValidatorWorker.
+run_forever`).  On a CUDA device the validation loop of a started
+:class:`AsyncValidator` and the claim loop of every worker run on a CUDA
+stream of their own, so their kernels (and the upload of a snapshot's or
+a restored checkpoint's params) can overlap a trainer's, or another
+worker's, on the same card, and their clock reads wait for their own work
+only (``engine.synchronize`` waits on the current stream).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from repro_torch.core.reporting import BaseLogger
 from repro_torch.core.suite import (SuiteResult, ValidationResult,
                                     params_from_checkpoint)
 from repro_torch.core.watcher import CheckpointWatcher, Policy
+from repro_torch.core.workqueue import WorkQueue, WorkUnit
 
 CKPT_TO_VERDICT_METRIC = "validate.ckpt_to_verdict_s"
 
@@ -92,9 +99,11 @@ class ValidationLedger:
 
     Schema v2: one JSONL row per (step, task) with the keys ``step``,
     ``task``, ``metrics``, ``timings``, ``subset_size``, ``engine`` and
-    ``score_dtype``, plus ``"handoff": "snapshot"`` on a row scored from a
-    pre-durable snapshot (durable rows omit the key) — the JAX package's
-    rows, so either package's tools can read the other's ledger.  Rows
+    ``score_dtype``, then ``"worker_id"`` on a row a fleet worker scored
+    and ``"handoff": "snapshot"`` on a row scored from a pre-durable
+    snapshot (a solo validator's durable rows carry neither key) — the JAX
+    package's rows, so either package's tools can read the other's
+    ledger.  Rows
     without ``"task"`` (schema v1) load as task ``"default"``; records
     with a ``"kind"`` key (fleet claim records) are skipped.  A torn final
     line (a crash mid-append) is dropped on load; a torn line elsewhere
@@ -147,6 +156,10 @@ class ValidationLedger:
     def __contains__(self, step: int) -> bool:
         return self.completed(step)
 
+    def tasks_for(self, step: int) -> List[str]:
+        with self._lock:
+            return sorted(self._by_step.get(step, ()))
+
     @property
     def validated_steps(self) -> List[int]:
         with self._lock:
@@ -169,6 +182,9 @@ class ValidationLedger:
                    "metrics": r.metrics, "timings": r.timings,
                    "subset_size": r.subset_size, "engine": r.engine,
                    "score_dtype": str(r.score_dtype)}
+            wid = str(getattr(r, "worker_id", "") or "")
+            if wid:
+                rec["worker_id"] = wid
             if getattr(r, "handoff", "") == "snapshot":
                 rec["handoff"] = "snapshot"
             recs.append(rec)
@@ -186,32 +202,56 @@ class ValidationLedger:
 
 
 class ValidatorWorker:
-    """Executes whole-checkpoint validation: restore -> every suite task ->
-    ledger rows.  The params are restored with ``template`` (default:
-    ``{"params": <the suite encoder's parameter shapes>}``, the layout the
-    trainer saves) and cached, so a step restores once.
+    """Executes validation work, the fleet's unit of scale.  Two modes share
+    one execution body, so solo and fleet validation are the same code:
+
+      * whole-step (:meth:`run_step`): restore -> every suite task ->
+        ledger rows; the solo :class:`AsyncValidator` runs on this.
+      * fleet (:meth:`run_once` / :meth:`run_forever`): claim one
+        (step, task) unit from the shared ``queue``, renew its lease every
+        ``heartbeat_interval_s`` while the engine runs, append the result
+        row, complete the unit.  A failed unit is abandoned so a peer
+        retries it; the queue's abandon count (derived from the ledger) is
+        the fleet's retry budget.
+
+    The params are restored with ``template`` (default: ``{"params": <the
+    suite encoder's parameter shapes>}``, the layout the trainer saves) and
+    cached, so the units of one step restore once.  ``worker_id`` (default:
+    the queue's) stamps every row this worker records; empty, the rows
+    carry no ``worker_id`` key.
 
     ``snapshots`` (a :class:`~repro_torch.handoff.SnapshotChannel` or
     :class:`~repro_torch.handoff.SnapshotSpool`: anything with
     ``get(step)``) is consulted before the durable restore, so a step can be
     scored while its ``ckpt.save`` is still running; its rows then carry
-    ``handoff="snapshot"``."""
+    ``handoff="snapshot"``.
+
+    On a CUDA device :meth:`run_once` runs on the worker's own CUDA stream,
+    so two workers on two threads of one process never wait on each
+    other's work."""
 
     def __init__(self, ckpt_root: str, pipeline, *,
                  ledger: Optional[ValidationLedger] = None,
+                 queue: Optional[WorkQueue] = None,
                  logger: Optional[BaseLogger] = None,
                  params_extractor: Callable = params_from_checkpoint,
                  template: Optional[dict] = None,
-                 engine: Any = None, telemetry=None, max_errors: int = 256,
-                 snapshots: Any = None):
+                 engine: Any = None, worker_id: str = "",
+                 heartbeat_interval_s: float = 0.25, telemetry=None,
+                 max_errors: int = 256, snapshots: Any = None):
         self.ckpt_root = ckpt_root
         self.pipeline = pipeline
+        self.queue = queue
         self.snapshots = snapshots
         self.logger = logger
         self.params_extractor = params_extractor
         self.template = template if template is not None \
             else {"params": pipeline.spec.param_shapes}
         self.engine = engine
+        self.worker_id = str(worker_id
+                             or (queue.worker_id if queue is not None
+                                 else ""))
+        self.heartbeat_interval_s = heartbeat_interval_s
         expected = tuple(getattr(pipeline, "task_names", ())
                          or ("default",))
         self.ledger = ledger if ledger is not None \
@@ -224,9 +264,11 @@ class ValidatorWorker:
                 telemetry.metrics.counter("validator.errors_dropped"))
             if self.ledger.telemetry is None:
                 self.ledger.telemetry = telemetry
+        self.completed: List[WorkUnit] = []
         self._params_step: Optional[int] = None
         self._params: Any = None
         self._params_handoff = ""   # "snapshot" | "" for the cached params
+        self._stream: Optional[torch.cuda.Stream] = None
 
     def load_params(self, step: int):
         if self._params_step != step:
@@ -258,15 +300,21 @@ class ValidatorWorker:
         self._params_handoff = ""
 
     def _stamp(self, result):
-        """Mark every row of ``result`` with the hand-off route of its
-        params (no-op for a durable restore: the rows stay byte-identical)."""
-        if not self._params_handoff:
+        """Mark every row of ``result`` with this worker's id and the
+        hand-off route of its params (a no-op for an anonymous worker's
+        durable restore: the rows stay byte-identical)."""
+        updates = {}
+        if self.worker_id:
+            updates["worker_id"] = self.worker_id
+        if self._params_handoff:
+            updates["handoff"] = self._params_handoff
+        if not updates:
             return result
         if isinstance(result, SuiteResult):
             return dataclasses.replace(result, tasks={
-                n: dataclasses.replace(r, handoff=self._params_handoff)
+                n: dataclasses.replace(r, **updates)
                 for n, r in result.tasks.items()})
-        return dataclasses.replace(result, handoff=self._params_handoff)
+        return dataclasses.replace(result, **updates)
 
     def log_result(self, result) -> None:
         if self.logger is None:
@@ -313,6 +361,84 @@ class ValidatorWorker:
                 return
         tel.metrics.histogram(CKPT_TO_VERDICT_METRIC).observe(lag)
 
+    # -- fleet claim loop ---------------------------------------------------
+    def own_stream(self):
+        """The worker's own CUDA stream as a context when the suite's
+        encoder runs on a card (a null context otherwise)."""
+        spec = getattr(self.pipeline, "spec", None)
+        device = getattr(spec, "device", None)
+        if device is None or torch.device(device).type != "cuda":
+            return contextlib.nullcontext()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(torch.device(device))
+        return torch.cuda.stream(self._stream)
+
+    def execute_unit(self, unit: WorkUnit):
+        """Run one claimed (step, task) unit, renewing its lease while the
+        engine runs, then record its row and complete it."""
+        params = self.load_params(unit.step)
+        stop_hb = threading.Event()
+        hb = threading.Thread(target=self._heartbeat, args=(unit, stop_hb),
+                              daemon=True)
+        hb.start()
+        try:
+            result = self._stamp(self.pipeline.run_unit(
+                params, unit, engine=self.engine))
+        except BaseException:
+            self.invalidate_params_cache()
+            raise
+        finally:
+            stop_hb.set()
+            hb.join()
+        self.ledger.record(result)
+        self.queue.complete(unit)   # after the row: a complete has a result
+        if self.telemetry is not None:
+            self._observe_verdict(unit.step)
+        self.log_result(result)
+        self.completed.append(unit)
+        return result
+
+    def _heartbeat(self, unit: WorkUnit, stop_evt: threading.Event) -> None:
+        while not stop_evt.wait(self.heartbeat_interval_s):
+            try:
+                self.queue.renew(unit)
+            except Exception:   # a failed heartbeat must not kill the run
+                pass
+
+    def run_once(self) -> int:
+        """One scheduling round: claim and execute at most one unit.
+        Returns 1 when a unit completed, else 0 (appending a tick when only
+        peers' live leases are left, so a dead peer's lease can age out:
+        the ledger's sequence is the clock)."""
+        if self.queue is None:
+            raise RuntimeError("fleet mode requires a WorkQueue")
+        state = self.queue.refresh()
+        for unit in state.claimable(self.queue.capabilities):
+            if not self.queue.try_claim(unit):
+                continue                    # raced a peer and lost
+            try:
+                with self.own_stream():
+                    self.execute_unit(unit)
+            except Exception as e:          # release it for a peer to retry
+                self.errors.append((unit.step, f"{unit.task}: {e!r}"))
+                self.queue.abandon(unit, error=repr(e))
+                return 0
+            return 1
+        if state.blocked():
+            self.queue.tick()
+        return 0
+
+    def run_forever(self, stop_event: threading.Event, *,
+                    idle_wait_s: float = 0.05,
+                    drained: Optional[Callable[[], bool]] = None) -> None:
+        """Claim loop until ``stop_event`` is set, or ``drained()`` reports
+        the backlog empty during an idle round."""
+        while not stop_event.is_set():
+            if self.run_once() == 0:
+                if drained is not None and drained():
+                    return
+                stop_event.wait(idle_wait_s)
+
 
 class AsyncValidator:
     """Watches ``ckpt_root`` and validates every committed checkpoint.
@@ -337,7 +463,11 @@ class AsyncValidator:
     checkpoint validates nothing twice.  ``extra_protect`` (a callable
     returning a set of steps) unions protections from outside validation
     into :meth:`protect_set`: the serving tier's live and promoting
-    checkpoints (``Promoter.protect_set``)."""
+    checkpoints (``Promoter.protect_set``).  ``workqueue`` (a fleet's
+    :class:`~repro_torch.core.workqueue.WorkQueue` on the same ledger)
+    keeps steps under other workers' live leases out of GC, and
+    ``worker_id`` then stamps this validator's rows; without one, the
+    ledger's bytes are the solo validator's."""
 
     def __init__(self, ckpt_root: str, pipeline, *,
                  logger: Optional[BaseLogger] = None,
@@ -349,10 +479,12 @@ class AsyncValidator:
                  template: Optional[dict] = None,
                  engine: Any = None, max_retries: int = 2,
                  controller: Any = None,
+                 workqueue: Optional[WorkQueue] = None, worker_id: str = "",
                  telemetry=None, snapshots: Any = None,
                  extra_protect: Optional[Callable[[], set]] = None):
         self.ckpt_root = ckpt_root
         self.telemetry = telemetry
+        self.workqueue = workqueue
         self.watcher = CheckpointWatcher(ckpt_root, policy=policy,
                                          telemetry=telemetry)
         self.snapshots = snapshots
@@ -364,6 +496,8 @@ class AsyncValidator:
         self.max_num_valid = max_num_valid
         expected = tuple(getattr(pipeline, "task_names", ()) or ("default",))
         if telemetry is not None:
+            if workqueue is not None and workqueue.telemetry is None:
+                workqueue.telemetry = telemetry
             # engine spans: thread the handle through the suite's config
             vcfg = getattr(pipeline, "vcfg", None)
             if vcfg is not None \
@@ -373,8 +507,9 @@ class AsyncValidator:
             ckpt_root, pipeline,
             ledger=ValidationLedger(ledger_path, expected_tasks=expected,
                                     telemetry=telemetry),
-            logger=logger, params_extractor=params_extractor,
-            template=template, engine=engine, telemetry=telemetry,
+            queue=workqueue, logger=logger,
+            params_extractor=params_extractor, template=template,
+            engine=engine, worker_id=worker_id, telemetry=telemetry,
             snapshots=snapshots)
         self.poll_interval_s = poll_interval_s
         self.results: List[ValidationResult] = []
@@ -456,22 +591,14 @@ class AsyncValidator:
             n += 1
         return n
 
-    def _own_stream(self):
-        """The validation thread's own CUDA stream when the suite's encoder
-        runs on a card (a null context otherwise): with the default stream
-        its kernels would serialise with a trainer's on the same card."""
-        spec = getattr(self.worker.pipeline, "spec", None)
-        device = getattr(spec, "device", None)
-        if device is None or torch.device(device).type != "cuda":
-            return contextlib.nullcontext()
-        return torch.cuda.stream(torch.cuda.Stream(torch.device(device)))
-
     def start(self) -> None:
         if self._thread is not None:
             raise RuntimeError("validator already started")
 
         def loop():
-            with self._own_stream():
+            # the worker's own stream: with the default stream the loop's
+            # kernels would serialise with a trainer's on the same card
+            with self.worker.own_stream():
                 while not self._stop.is_set():
                     self._wake.clear()
                     self.validate_pending()
@@ -485,20 +612,45 @@ class AsyncValidator:
         self._thread.start()
 
     def stop(self, *, drain: bool = True,
-             timeout: Optional[float] = None) -> None:
+             drain_timeout: Optional[float] = None) -> None:
         """Signal shutdown; with ``drain`` validate whatever is committed
-        (and whatever snapshot is pending)."""
+        (and whatever snapshot is pending).
+
+        ``drain_timeout`` (seconds) bounds the whole shutdown, the loop's
+        join and the drain pass, so a wedged engine run cannot hang it: on
+        expiry the timeout goes to ``errors`` (key ``"stop"``) and the
+        wedged daemon thread is left behind; whatever it ledgers later is
+        still idempotent on restart."""
         self._stop.set()
         self._wake.set()                # unblock a loop mid-sleep
+        deadline = None if drain_timeout is None \
+            else time.monotonic() + drain_timeout
         if self._thread is not None:
-            self._thread.join(timeout=timeout)
+            self._thread.join(timeout=drain_timeout)
             if self._thread.is_alive():
-                self.errors.append(("stop", f"loop still running after "
-                                            f"{timeout}s"))
+                self.errors.append(
+                    ("stop", f"drain timed out after {drain_timeout}s "
+                             "waiting for the validation loop"))
+                self._thread = None
                 return
             self._thread = None
-        if drain:
+        if not drain:
+            return
+        if deadline is None:
             self.validate_pending()
+            return
+        t = threading.Thread(target=self._drain_guarded, daemon=True)
+        t.start()
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+        if t.is_alive():
+            self.errors.append(
+                ("stop", f"drain timed out after {drain_timeout}s"))
+
+    def _drain_guarded(self) -> None:
+        try:
+            self.validate_pending()
+        except Exception as e:          # surfaced, never raised at shutdown
+            self.errors.append(("stop", f"drain: {e!r}"))
 
     def validate_all_existing(self) -> List[ValidationResult]:
         """The paper's single-GPU mode: validate what is committed now."""
@@ -507,10 +659,14 @@ class AsyncValidator:
 
     def protect_set(self) -> set:
         """The steps checkpoint GC must keep: committed, not yet validated
-        and not policy-skipped, plus whatever ``extra_protect`` names."""
+        and not policy-skipped; with a fleet ``workqueue``, every step
+        under a live lease of any worker (a peer may be mid-restore on
+        it); plus whatever ``extra_protect`` names."""
         committed = set(ckpt.list_steps(self.ckpt_root))
         protected = committed - set(self.ledger.validated_steps) \
             - self.watcher.skipped
+        if self.workqueue is not None:
+            protected |= committed & self.workqueue.refresh().claimed_steps()
         if self.extra_protect is not None:
             protected |= set(self.extra_protect())
         return protected

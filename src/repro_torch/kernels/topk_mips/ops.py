@@ -28,6 +28,7 @@ no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -44,6 +45,8 @@ __all__ = ["SCORE_DTYPES", "MAX_K", "pad_features", "padded_dim",
 MAX_K = 4096
 
 launches: Dict[str, int] = {"f32": 0, "bf16": 0, "int8": 0}
+# fleet workers on threads of one process launch concurrently
+_LAUNCHES_LOCK = threading.Lock()
 
 ELEM_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
 #: the library's code when cuTensorMapEncodeTiled is not found
@@ -236,7 +239,8 @@ def _topk_cuda(score_dtype: str, q, c, q_scale, c_scale, *, k_target: int,
         if rc != 0:
             raise RuntimeError(f"topk_mips_{score_dtype} launch failed with "
                                f"CUDA error {rc}")
-        launches[score_dtype] += 1
+        with _LAUNCHES_LOCK:
+            launches[score_dtype] += 1
         run_s, run_i = buf[0], buf[1].view(torch.int32)
     return run_s, run_i
 

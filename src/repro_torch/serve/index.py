@@ -22,8 +22,16 @@ build (a whole-corpus encode) never queues ahead of the batches the query
 service scores on its stream, and it synchronizes that stream before it
 returns: an index is complete before any other stream can read it.
 
-The reference's sharded index (``mesh``: rows over a device mesh, pads and
-an over-request) is not ported yet; :class:`ServeConfig` has no ``mesh``.
+With ``ServeConfig.mesh`` (a :class:`~repro_torch.distributed.compat.
+DeviceMesh`) the corpus rows are split over the mesh, each shard on its
+device, and searched through :func:`~repro_torch.core.retrieval.
+topk_sharded`.  A corpus whose row count does not divide the shards is
+zero-padded (the pads land in the last shard only) and a search
+over-requests ``k + n_pad`` before a host-side pad filter: every shard's
+real top k survives its local cut, so the filtered prefix equals the
+unpadded answer.  Under ``impl="cuda"`` the mesh is ignored, as the
+validator's route ignores it: the topk_mips kernel is single-device, so
+the padded matrix stays whole on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -31,21 +39,23 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.engine import (TokenStore, chunk_geometry, doc_cache_dir,
                                      encode_store, synchronize)
 from repro_torch.core.precision import validate_score_dtype
-from repro_torch.core.retrieval import IMPLS, topk_exact
+from repro_torch.core.retrieval import IMPLS, topk_exact, topk_sharded
+from repro_torch.distributed.sharding import ShardedRows, rows_sharding
 from repro_torch.models.nn import to_torch_tree
 
 
 @dataclasses.dataclass
 class ServeConfig:
     """Serving-tier knobs.  The scoring fields (``score_dtype`` / ``impl``
-    / ``block``) mirror :class:`~repro_torch.core.suite.ValidationConfig`
+    / ``mesh`` / ``block``) mirror :class:`~repro_torch.core.suite.ValidationConfig`
     — an index built with the validator's values serves the validator's
     answers; ``chunk_size`` / ``batch_size`` feed the same
     :func:`chunk_geometry`, so the corpus TokenStore is padded exactly like
@@ -55,6 +65,7 @@ class ServeConfig:
     score_dtype: str = "f32"          # f32 | bf16 | int8 (resident storage
                                       # + scoring precision, see module doc)
     impl: str = "torch"               # torch | cuda top-k
+    mesh: Any = None                  # shard corpus rows over this mesh
     block: int = 4096                 # topk_exact block rows
     batch_size: int = 64              # corpus encode rows (chunk geometry)
     chunk_size: Optional[int] = None  # override: TokenStore chunk rows
@@ -76,29 +87,63 @@ class ServingIndex:
     step: int
     params: Any
     doc_ids: List[str]
-    emb: torch.Tensor                 # (N, D) device-resident
-    n_docs: int
+    emb: Any                          # (N + n_pad, D): a device-resident
+                                      # tensor, or ShardedRows on a mesh
+    n_docs: int                       # real rows (pads excluded)
     score_dtype: str
     impl: str
     block: int
     build_s: float
+    mesh: Any = None
+    axis_names: Optional[Tuple[str, ...]] = None
+
+    @property
+    def n_pad(self) -> int:
+        return int(self.emb.shape[0]) - self.n_docs
+
+    @property
+    def device(self) -> torch.device:
+        """The device the merged answers land on (the first shard's)."""
+        return self.emb.device
+
+    def finite(self) -> bool:
+        """True when every resident value is finite (read on the resident
+        dtype, shard by shard, without an f32 copy)."""
+        shards = self.emb.shards if isinstance(self.emb, ShardedRows) \
+            else [self.emb]
+        return all(bool(torch.isfinite(t).all()) for t in shards)
 
     def topk(self, q_emb: torch.Tensor, *, k: int):
         """Raw top-k over the resident matrix, the validator's
-        ``retrieve_run`` dispatch -> host numpy ``(scores (Q, k') f32,
-        rows (Q, k') int32)``, ``k' = min(k, n_docs)``.  The copy to the
-        host waits for the calling thread's stream, so the index is no
-        longer read once this returns."""
-        kk = min(k, self.n_docs)
-        q = q_emb.to(self.emb.device).float().contiguous()
+        ``retrieve_run`` dispatch plus the pad over-request on a padded
+        index -> host numpy ``(scores (Q, k') f32, rows (Q, k') int32)``,
+        ``k' = min(k, n_docs)`` real rows.  The copy to the host waits for
+        the calling thread's stream, so the index is no longer read once
+        this returns."""
+        kk = min(k + self.n_pad, int(self.emb.shape[0]))
+        q = q_emb.to(self.device).float().contiguous()
         if self.impl == "cuda":
             from repro_torch.kernels.topk_mips import ops as mips_ops
             s, i = mips_ops.topk_mips(q, self.emb, k=kk,
                                       score_dtype=self.score_dtype)
+        elif self.mesh is not None:
+            s, i = topk_sharded(self.mesh, q, self.emb, k=kk,
+                                axis_names=self.axis_names, block=self.block,
+                                score_dtype=self.score_dtype)
         else:
             s, i = topk_exact(q, self.emb, k=kk, block=self.block,
                               score_dtype=self.score_dtype)
-        return s.cpu().numpy(), i.cpu().numpy()
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        kr = min(k, self.n_docs)
+        if not self.n_pad:
+            return s[:, :kr], i[:, :kr]
+        out_s = np.empty((s.shape[0], kr), s.dtype)
+        out_i = np.empty((s.shape[0], kr), i.dtype)
+        for qi in range(s.shape[0]):
+            keep = i[qi] < self.n_docs          # pads score 0; drop them
+            out_s[qi] = s[qi, keep][:kr]
+            out_i[qi] = i[qi, keep][:kr]
+        return out_s, out_i
 
     def search(self, q_emb: torch.Tensor, *, k: int):
         """Per-row answers: ``(ids_rows, score_rows)`` lists — row ``r``
@@ -135,7 +180,8 @@ class IndexBuilder:
                              f"(expected one of {IMPLS})")
         self.spec = spec
         self.doc_ids = list(corpus)
-        chunk, _ = chunk_geometry(self.cfg, len(self.doc_ids))
+        chunk, _ = chunk_geometry(self.cfg, len(self.doc_ids),
+                                  self.cfg.mesh)
         self.store = TokenStore.build(
             [corpus[d] for d in self.doc_ids],
             max_len=spec.p_max_len, chunk=chunk,
@@ -158,21 +204,59 @@ class IndexBuilder:
     def build(self, params, step: int) -> ServingIndex:
         """Upload ``params`` (a restored tree lands on the CPU), encode the
         corpus and store it at the resident dtype, all on the builder's
-        stream, which is synchronized before the index is returned."""
+        stream, which is synchronized before the index is returned.  On a
+        mesh the corpus is encoded shard by shard, zero-padded to a
+        multiple of the shard count and (under ``impl="torch"``) split
+        over the shards."""
         cfg = self.cfg
         device = torch.device(self.spec.device)
+        mesh = cfg.mesh
+        axis_names = tuple(mesh.axis_names) if mesh is not None else None
         t0 = time.time()
         with self.on_stream(), torch.inference_mode():
             params = to_torch_tree(params, device)
             c_emb = encode_store(self.spec.encode_passage, params, self.store,
-                                 device=device)
+                                 device=device, mesh=mesh,
+                                 axis_names=axis_names)
+            n_docs = int(c_emb.shape[0])
             # bf16: the resident matrix shrinks 2x, and scoring's bf16 cast
             # becomes a no-op over the values the validator's cast produces
             c_emb = c_emb.to(torch.bfloat16 if cfg.score_dtype == "bf16"
                              else torch.float32)
-            synchronize(device)
+            if mesh is not None:
+                c_emb = place_rows(c_emb, mesh, axis_names,
+                                   sharded=cfg.impl != "cuda")
+            for dev in ([device] + (mesh.distinct_devices()
+                                    if mesh is not None else [])):
+                synchronize(dev)
         self.index_builds += 1
         return ServingIndex(
             step=int(step), params=params, doc_ids=self.doc_ids, emb=c_emb,
-            n_docs=int(c_emb.shape[0]), score_dtype=cfg.score_dtype,
-            impl=cfg.impl, block=cfg.block, build_s=time.time() - t0)
+            n_docs=n_docs, score_dtype=cfg.score_dtype, impl=cfg.impl,
+            block=cfg.block, build_s=time.time() - t0, mesh=mesh,
+            axis_names=axis_names)
+
+
+def place_rows(emb: torch.Tensor, mesh, axis_names: Sequence[str], *,
+               sharded: bool = True):
+    """A ``(N, D)`` corpus matrix as a mesh index holds it: zero rows
+    appended up to a multiple of the shard count (so the pads lie in the
+    last shard only), then split over the shards
+    (:class:`~repro_torch.distributed.sharding.ShardedRows`), or, with
+    ``sharded=False`` (the single-device kernel's route), left whole on
+    the mesh's first device."""
+    placement = rows_sharding(mesh, axis_names)
+    pad = (-int(emb.shape[0])) % placement.n_shards
+    if not sharded:
+        emb = emb.to(mesh.home)
+        return torch.cat([emb, emb.new_zeros((pad, emb.shape[1]))]) \
+            if pad else emb
+    if not pad:
+        return placement.put(emb)
+    rows = (int(emb.shape[0]) + pad) // placement.n_shards
+    blocks = [emb[i * rows:(i + 1) * rows]
+              for i in range(placement.n_shards)]
+    blocks[-1] = torch.cat([blocks[-1],
+                            emb.new_zeros((pad, emb.shape[1]))])
+    return ShardedRows([b.to(d) for b, d in zip(blocks,
+                                                placement.devices)])

@@ -135,10 +135,10 @@ class Promoter:
             raise ValueError(
                 f"candidate index rows ({index.n_docs}) != doc ids "
                 f"({len(index.doc_ids)})")
-        if not bool(torch.isfinite(index.emb).all()):
+        if not index.finite():
             raise ValueError("candidate index has non-finite embeddings")
         canary = torch.zeros((1, int(index.emb.shape[1])),
-                             device=index.emb.device)
+                             device=index.device)
         ids, _ = index.search(canary,
                               k=min(self.service.k, index.n_docs))
         if not ids or not ids[0]:

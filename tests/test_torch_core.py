@@ -237,7 +237,7 @@ def test_validator_thread_validates_while_checkpoints_land(tmp_path):
     for step in (1, 2, 3):
         table = rng.normal(size=(VOCAB, DIM)).astype(np.float32)
         ckpt.save(root, step, {"params": {"table": table}})
-    v.stop(drain=True, timeout=60)
+    v.stop(drain=True, drain_timeout=60)
     assert sorted(r.step for r in v.results) == [1, 2, 3]
     assert not v.errors and v.protect_set() == set()
 

@@ -5,8 +5,8 @@ Chrome export and stage summaries, the bounded validator fault ring,
 BudgetPolicy on shared registry instruments, and the solo validator's
 lifecycle spans.  Where the reference module takes the same inputs (seeded
 numpy values, the same trace records) the port's output must equal it
-exactly.  The reference's two-worker fleet test waits for the fleet slice
-(``ROADMAP.md`` A12); in its place the trainer + async validator loop
+exactly.  The reference's two-worker fleet test is mirrored in
+tests/test_torch_fleet.py; here the trainer + async validator loop
 measures checkpoint-to-verdict from the trainer's ``produced`` mark, and
 the port's CLI runs with the ``--obs_*`` flags.
 """

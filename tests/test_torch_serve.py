@@ -615,8 +615,8 @@ def test_serve_entry_points_raise_without_a_card(world, tmp_path,
 
 
 def test_serve_flags_are_ported():
-    """The six ``--serve*`` flags left the not-yet-ported table; the
-    fleet's flags and ``--scan_window`` still raise."""
+    """The six ``--serve*`` flags left the not-yet-ported table;
+    ``--scan_window`` still raises."""
     from repro_torch.core import cli
     assert not {"serve", "serve_k", "serve_batch", "serve_flush_ms",
                 "serve_pending", "serve_events"} & set(cli._NOT_PORTED)
@@ -626,9 +626,10 @@ def test_serve_flags_are_ported():
     assert (args.serve, args.serve_k, args.serve_batch, args.serve_flush_ms,
             args.serve_pending, args.serve_events) == \
         (False, 10, 8, 4.0, 256, None)
-    with pytest.raises(NotImplementedError, match="--worker"):
+    with pytest.raises(NotImplementedError, match="--scan_window"):
         cli.main(["--query_file", "q", "--candidate_dir", "c",
-                  "--ckpts_dir", "k", "--qrel_file", "r", "--worker"])
+                  "--ckpts_dir", "k", "--qrel_file", "r",
+                  "--scan_window", "8"])
 
 
 def test_port_restores_the_reference_checkpoints(world):

@@ -123,13 +123,18 @@ def test_port_cli_matches_jax_cli(filespace, tmp_path, score_dtype):
 
 def test_unported_flags_raise(filespace, tmp_path):
     base = _args(filespace, tmp_path, "torch_encoder") + ["--device", "cpu"]
-    # the control plane's, the hand-off's and serving's flags are ported
-    # (tests/test_torch_control_integration.py, tests/test_torch_serve.py);
-    # the fleet and --scan_window not
-    for extra in (["--worker"], ["--worker_id", "w0"], ["--lease_ttl", "4"],
-                  ["--scan_window", "4"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            torch_main(base + extra)
+    # the control plane's, the hand-off's, serving's and the fleet's flags
+    # are ported (tests/test_torch_control_integration.py,
+    # tests/test_torch_serve.py, tests/test_torch_fleet.py); --scan_window
+    # not
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        torch_main(base + ["--scan_window", "4"])
+    assert not (tmp_path / "asyncval_ledger.jsonl").exists()
+    assert torch_main(base + ["--worker", "--worker_id", "w0",
+                              "--lease_ttl", "4"]) == 0
+    rows = [r for r in _ledger(tmp_path) if "kind" not in r]
+    assert sorted(r["step"] for r in rows) == list(STEPS)
+    assert {r["worker_id"] for r in rows} == {"w0"}
 
 
 def test_default_device_is_cuda_and_never_falls_back(filespace, tmp_path):
