@@ -14,6 +14,8 @@
     python3 chip_smoke.py --fleet-only   # the kernel phases, then the main
                                          # phase (5) and the fleet phase
                                          # (5e) on its checkpoints
+    python3 chip_smoke.py --families-only  # the kernel phases, then the
+                                           # families phase (7)
 
 Phases, each printing one JSON line:
 
@@ -224,6 +226,43 @@ Phases, each printing one JSON line:
                 step time (CUDA events, five warm steps), peak memory;
                 (e) the same step on qwen2-72b at full width, 2 of its 80
                 layers, batch 16, a 32768-token cache.
+  7. families — the other model families at full width, weights drawn on
+                the card from a seed at each leaf's dtype (an MoE router
+                in f32): (a) deepseek-v2-lite-16b at full depth (27
+                layers, bf16 parameters): ``lm_loss`` and ``forward`` on 4
+                x 2048 tokens under "cuda" and "torch" (MLA takes the
+                chunked path under both: equal bits, no kernel launch),
+                each first call checked and counted, five more timed (CUDA
+                events); ``serve_batch`` (batch 4, prompt 128, gen 16,
+                tokens/s, equal tokens, no launch) and its device idle
+                share; then 2 layers (one dense, one MoE) in f32 against
+                the CPU (S=256) and, with capacity factor E (no drops), the
+                teacher-forced absorbed decode against the no-cache forward
+                (1e-3); (b) arctic-480b, 2 of its 35 layers at full width
+                in bf16 (the 35 would need ~960 GB): the same pair on 1 x
+                2048 tokens, 2 flash launches a forward (H=56, KV=8, G=7,
+                d=128), the logits of the impls by row cosine (median and
+                a share of the rows: a near tie of router probabilities
+                routes a token differently under either rounding);
+                ``serve_batch`` with 2 decode launches a step and no flash
+                launch; at f32 compute and capacity factor E, the decode
+                kernel's teacher-forced steps against the flash forward
+                (1e-3); peak memory; (c) bert4rec, sasrec, mind and deepfm
+                at their full configs, f32: ``serve_fn`` at serve_p99
+                (batch 512, 1000 candidates), ``loss_fn`` at batch 512
+                (forward only) and, but for deepfm, retrieval at
+                retrieval_cand (1 user, 10^6 candidates, top 100 by
+                ``topk_exact``, ids equal), each against the CPU; (d)
+                graphcast at its full config on full_graph_sm (2708 nodes,
+                10556 edges, 1433 features) and on one minibatch_lg
+                subgraph (1024 seeds, fanout (15, 10), 602 features) that
+                the port's sampler draws from a synthetic graph of 232,965
+                nodes with 32 out-edges each (the published 114.6 M cut to
+                what the host sorts in seconds): ``forward`` and ``loss_fn``
+                at f32 and bf16 on the card, the card against the CPU at
+                f32 (full depth on full_graph_sm, 2 layers on the
+                minibatch); ogb_products is not run (its edge latents alone
+                are 63 GB in bf16).
 
 Kernel launches are counted only while a path runs (the main path for
 topk_mips, also read over each run of the train phase, the subset phase's
@@ -231,8 +270,11 @@ materialized runs for its whole-corpus rows, the serve phase's 50 timed
 micro-batches at MS MARCO's size for its ``_serve`` rows, the fleet
 phase's in-process fleet (a) for its ``_fleet`` rows,
 the LM phase's ``lm_loss`` for flash attention, its ``serve_batch`` calls
-for decode attention: the three timed bf16 calls and the f32 one), with
-every count set to 0 just before it.  Then a
+for decode attention: the three timed bf16 calls and the f32 one; the
+families phase's arctic ``lm_loss`` for its ``_arctic`` flash bf16 row,
+its f32 forward for the f32 one, its three timed bf16 ``serve_batch``
+calls and its f32 teacher-forced steps for the decode rows), with every
+count set to 0 just before it.  Then a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero before that line.  It
@@ -551,6 +593,9 @@ def whole_corpus_rows(device, rand):
 FLASH_PATH = (4, 14, 2, 2048, 2048, 64, True)
 # a second timed row: qwen2-72b heads (d=128), one sequence of 2048
 FLASH_D128 = (1, 64, 8, 2048, 2048, 128, True)
+# arctic-480b's heads (56 over 8 KV heads, G=7, d=128), as the families
+# phase's forward gives them: one sequence of 2048
+FLASH_ARCTIC = (1, 56, 8, 2048, 2048, 128, True)
 # the cases of tests/test_kernels.py (flash_attention_matches_ref)
 FLASH_CASES = [(2, 4, 2, 64, 64, 32, True), (1, 8, 8, 33, 57, 64, False),
                (2, 2, 1, 128, 256, 128, True), (1, 14, 2, 40, 40, 64, True)]
@@ -623,7 +668,7 @@ def flash_kernel_phase(device):
         return rand(B, H, S, d, dt=dt), rand(B, KV, T, d, dt=dt), \
             rand(B, KV, T, d, dt=dt)
 
-    rows = {}
+    rows, arctic = {}, {}
     rng = np.random.default_rng(2)
     # property-style random shapes, as tests/test_kernels.py draws them
     drawn = []
@@ -676,7 +721,8 @@ def flash_kernel_phase(device):
         # the LM path and the d=128 row: transposed views of (B, S, H, d),
         # as the trunk passes them
         for name, shape in [("path", FLASH_PATH),
-                            ("qwen2_72b_heads", FLASH_D128)]:
+                            ("qwen2_72b_heads", FLASH_D128),
+                            ("arctic_heads", FLASH_ARCTIC)]:
             B, H, KV, S, T, d, causal = shape
             q = rand(B, S, H, d, dt=dt).transpose(1, 2)
             k = rand(B, T, KV, d, dt=dt).transpose(1, 2)
@@ -716,11 +762,13 @@ def flash_kernel_phase(device):
             emit(row)
             if name == "path":
                 rows[dt] = row
+            elif name == "arctic_heads":
+                arctic[dt] = row
             del q, k, v, got
     emit({"phase": "flash", "ok": True,
           "checked_launches": dict(ops.launches),
           "seconds": time.perf_counter() - t_phase})
-    return rows
+    return rows, arctic
 
 
 # ---------------------------------------------------------------------------
@@ -730,16 +778,21 @@ def flash_kernel_phase(device):
 # (name, B, KV, G, d, T capacity, length): the serve path (qwen2-0.5b heads,
 # batch 4, prompt 128 + gen 16), one layer of qwen2-0.5b at decode_32k and
 # at long_500k (full, and the kernel docstring's 32k prefix), and the
-# qwen2-72b / deepseek-67b attention geometry; all read the trunk's
+# qwen2-72b / deepseek-67b attention geometry, and arctic-480b's serve path
+# (G=7 at d=128, the families phase's serve_batch); all read the trunk's
 # transposed (B, T, KV, d) cache views
 DECODE_SHAPES = [("serve", 4, 2, 7, 64, 144, 128),
                  ("serve", 4, 2, 7, 64, 144, 143),
                  ("decode_32k", 128, 2, 7, 64, 32768, 32768),
                  ("long_500k", 1, 2, 7, 64, 524288, 524288),
                  ("long_500k_prefix_32k", 1, 2, 7, 64, 524288, 32768),
-                 ("qwen2_72b", 8, 8, 8, 128, 32768, 32768)]
-# the shape of the kernels line: the decode_32k layer
+                 ("qwen2_72b", 8, 8, 8, 128, 32768, 32768),
+                 ("arctic_serve", 4, 8, 7, 128, 144, 128),
+                 ("arctic_serve", 4, 8, 7, 128, 144, 143)]
+# the shapes of the kernels line: the decode_32k layer, and arctic's
+# serve_batch at its last step
 DECODE_MAIN = "decode_32k"
+DECODE_ARCTIC = ("arctic_serve", 143)
 # names in the profiler's kernel records: pass 1, and pass 2 when the plan
 # has more than one split
 DECODE_KERNELS = ("decode_split", "decode_merge")
@@ -784,7 +837,7 @@ def decode_kernel_phase(device):
                       int(rng.integers(1, 17)), T,
                       int(rng.choice(ops.HEAD_DIMS)),
                       int(rng.integers(1, T + 1))))
-    rows = {}
+    rows, arctic = {}, {}
     for dt in ("f32", "bf16"):
         errs, excesses = [], []
 
@@ -852,6 +905,8 @@ def decode_kernel_phase(device):
             emit(row)
             if name == DECODE_MAIN:
                 rows[dt] = row
+            elif (name, L) == DECODE_ARCTIC:
+                arctic[dt] = row
             del q, k, v, got
             torch.cuda.empty_cache()
         emit({"phase": "decode", "variant": dt, "checked": len(errs),
@@ -861,7 +916,7 @@ def decode_kernel_phase(device):
     emit({"phase": "decode", "ok": True,
           "checked_launches": dict(ops.launches),
           "seconds": time.perf_counter() - t_phase})
-    return rows
+    return rows, arctic
 
 
 # ---------------------------------------------------------------------------
@@ -3130,10 +3185,13 @@ def call_times_ms(fn, n: int = LM_REPEATS) -> dict:
             "n": n}
 
 
-def row_cosine(a, b) -> float:
+def row_cosines(a, b) -> torch.Tensor:
     a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
-    return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)))
-                 .min())
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def row_cosine(a, b) -> float:
+    return float(row_cosines(a, b).min())
 
 
 def lm_phase(device, trace: bool = False):
@@ -3358,25 +3416,597 @@ def lm_phase(device, trace: bool = False):
     return measured
 
 
-def device_params(cfg, seed: int, device):
-    """Random parameters made on the card from a seed, with the scheme of
-    ``transformer.init_numpy`` (norm scales 1, biases 0, tables N(0, 0.02),
-    weights N(0, 1/fan_in)): the 17 GB of a 2-layer qwen2-72b are made in a
-    second instead of a minute of host sampling and upload."""
+# ---------------------------------------------------------------------------
+# phase 7: the other model families (MoE and MLA LMs, recsys, GraphCast)
+# ---------------------------------------------------------------------------
+
+FAMILY_SEED = 24
+FAMILY_GATES = {
+    # (a) the two impls run the same MLA code: equal bits
+    "deepseek_cpu_hidden_err": 2e-3, "deepseek_cpu_loss": 1e-4,
+    # teacher-forced decode against the no-cache forward, f32 compute
+    "decode_logits": 1e-3,
+    # (b) arctic's logits, flash vs the chunked path.  A token whose two
+    # router probabilities nearly tie (their gap below the impls' rounding
+    # difference) may pick another expert, and moves the capacity drops of
+    # its experts' later tokens: at bf16 that is a few percent of the rows,
+    # so the gates hold the median row and most rows; at f32 (differences
+    # near 1e-6) the median and all but 0.5% of the rows, tightly
+    "arctic_cos": {"bf16": {"median": 0.999, "row": 0.99, "share": 0.9},
+                   "f32": {"median": 0.99999, "row": 0.9999,
+                           "share": 0.995}},
+    # (c), (d): the card against the CPU at f32, relative to the scale
+    "recsys_rel": 1e-4, "graphcast_err": 1e-3, "graphcast_loss_rel": 1e-4,
+}
+# the serve_batch shape of the LM phase: batch 4, prompt 128, gen 16
+FAMILY_SERVE = {"batch": 4, "prompt": 128, "gen": 16}
+ARCTIC_LAYERS = 2
+# minibatch_lg: reddit's 232,965 nodes and 602 features, its edges cut to
+# this many random out-neighbours a node (reddit has ~492), which the host
+# sorts into a CSR in about a second
+MINIBATCH_DEGREE = 32
+# the minibatch's CPU comparison runs the card's processor cut to this depth
+MINIBATCH_CPU_LAYERS = 2
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {key: to_cpu(val) for key, val in tree.items()}
+    return tree.cpu()
+
+
+def n_elements(tree) -> int:
+    from repro_torch.ckpt import checkpoint as ckpt
+    return sum(t.numel() for _, t in ckpt.flatten(tree))
+
+
+def n_bytes(tree) -> int:
+    from repro_torch.ckpt import checkpoint as ckpt
+    return sum(t.numel() * t.element_size() for _, t in ckpt.flatten(tree))
+
+
+def timed_serve(params, cfg, prompts, gen, calls: int = 3):
+    """serve_batch: one warm-up call, then ``calls`` timed ones (host clock
+    to a synchronize); launches counted over the timed calls."""
+    from repro_torch.launch import lm_demo
+    lm_demo.serve_batch(params, cfg, prompts, gen)
+    reset_all_launches()
+    seconds = []
+    for _ in range(calls):
+        out, s = timed(lambda: lm_demo.serve_batch(params, cfg, prompts,
+                                                   gen))
+        seconds.append(s)
+    launches = all_launches()
+    B = prompts.shape[0]
+    return out, launches, {"seconds": seconds,
+                           "tokens_per_s": B * gen / statistics.median(
+                               seconds)}
+
+
+def teacher_forced_err(params, cfg, seq, P):
+    """Prefill ``seq[:, :P]``, then decode ``seq[:, P:]`` one token a step;
+    the largest |step logits - the no-cache forward's logits at that
+    position| over the steps, and the steps' launches."""
     from repro_torch.models import transformer as tfm
+    S = seq.shape[1]
+    with torch.inference_mode():
+        full = tfm.logits(params, cfg, tfm.forward(params, cfg, seq)[0])
+        _, caches = tfm.prefill(params, cfg, seq[:, :P], max_len=S)
+        reset_all_launches()
+        err = 0.0
+        for i in range(P, S):
+            step, _ = tfm.decode_step(params, cfg, caches, seq[:, i:i + 1],
+                                      i)
+            err = max(err, float((step[:, 0] - full[:, i]).abs().max()))
+        launches = all_launches()
+    return err, launches
+
+
+def lm_impls_part(name, params, full, tokens, per_forward):
+    """``lm_loss`` and ``forward`` under ``attn_impl`` "cuda" and "torch":
+    each first call checked and counted (``per_forward`` flash launches a
+    forward under "cuda"), then five timed by CUDA events."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    out = {}
+    dt = "bf16" if full.compute_dtype == torch.bfloat16 else "f32"
+    for impl in ("cuda", "torch"):
+        cfg = dataclasses.replace(full, attn_impl=impl)
+        with torch.inference_mode():
+            reset_all_launches()
+            loss, metrics = tfm.lm_loss(params, cfg, {"tokens": tokens})
+            loss_launches = all_launches()
+            reset_all_launches()
+            hidden, _, aux = tfm.forward(params, cfg, tokens)
+            fwd_launches = all_launches()
+            loss_ms = call_times_ms(
+                lambda: tfm.lm_loss(params, cfg, {"tokens": tokens}))
+            fwd_ms = call_times_ms(lambda: tfm.forward(params, cfg, tokens))
+            lg = tfm.logits(params, cfg, hidden)
+        want = {key: 0 for key in loss_launches}
+        if impl == "cuda":
+            want[f"flash_attention_{dt}"] = per_forward
+        check(loss_launches == want and fwd_launches == want,
+              f"{name} {impl}: launches {loss_launches} (lm_loss), "
+              f"{fwd_launches} (forward), expected {want}")
+        check(hidden.shape == (*tokens.shape, full.d_model)
+              and bool(torch.isfinite(lg).all())
+              and math.isfinite(float(loss)) and float(metrics["aux"]) > 0,
+              f"{name} {impl}: non-finite logits or loss, or no aux")
+        check(torch.equal(loss, metrics["xent"]
+                          + full.router_aux_coef * metrics["aux"]),
+              f"{name} {impl}: lm_loss is not xent + coef * aux")
+        out[impl] = {"loss": loss, "xent": float(metrics["xent"]),
+                     "aux": float(metrics["aux"]), "hidden": hidden,
+                     "logits": lg, "lm_loss_ms": loss_ms,
+                     "forward_ms": fwd_ms, "launches": loss_launches}
+    return out
+
+
+def deepseek_part(device):
+    """(a) deepseek-v2-lite-16b: full width and depth in bf16, then two
+    layers in f32 against the CPU and its absorbed decode."""
+    import dataclasses
+
+    from repro_torch.configs import deepseek_v2_lite_16b
+    from repro_torch.launch import lm_demo
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    full = dataclasses.replace(deepseek_v2_lite_16b.full_config(),
+                               param_dtype=torch.bfloat16)
+    params = device_params(full, FAMILY_SEED, device)
+    emit({"phase": "families", "part": "a", "setup": "params",
+          "config": full.name, "layers": full.n_layers,
+          "n_params": n_elements(params), "gb": n_bytes(params) / 1e9,
+          "seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(FAMILY_SEED)
+    B, S = 4, 2048
+    tokens = torch.from_numpy(rng.integers(1, full.vocab_size, (B, S))
+                              .astype(np.int32)).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    out = lm_impls_part("deepseek", params, full, tokens, 0)
+    a, b = out["cuda"], out["torch"]
+    # MLA takes the chunked path under either impl: the same code, bits
+    check(torch.equal(a["hidden"], b["hidden"]) and torch.equal(
+        a["loss"], b["loss"]), "deepseek: the two impls differ")
+    emit({"phase": "families", "part": "a", "config": full.name,
+          "compute_dtype": "bf16", "B": B, "S": S,
+          "loss": float(a["loss"]), "xent": a["xent"], "aux": a["aux"],
+          "impls_equal": True,
+          "ms": {impl: {"lm_loss": out[impl]["lm_loss_ms"],
+                        "forward": out[impl]["forward_ms"]} for impl in out},
+          "launches": {impl: out[impl]["launches"] for impl in out},
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del out, a, b
+    P, G = FAMILY_SERVE["prompt"], FAMILY_SERVE["gen"]
+    prompts = tokens[:FAMILY_SERVE["batch"], :P].contiguous()
+    serve, gens = {}, {}
+    for impl in ("cuda", "torch"):
+        cfg = dataclasses.replace(full, attn_impl=impl)
+        gens[impl], launches, serve[impl] = timed_serve(params, cfg, prompts,
+                                                        G)
+        check(not any(launches.values()), f"deepseek serve_batch {impl}: "
+              f"launches {launches}, expected none")
+        check(gens[impl].shape == (prompts.shape[0], G)
+              and bool(((gens[impl] >= 0)
+                        & (gens[impl] < full.vocab_size)).all()),
+              f"deepseek serve_batch {impl}: {tuple(gens[impl].shape)}")
+    check(torch.equal(gens["cuda"], gens["torch"]),
+          "deepseek serve_batch tokens differ between impls")
+    trace = traced("deepseek_serve_batch", lambda: lm_demo.serve_batch(
+        params, dataclasses.replace(full, attn_impl="cuda"), prompts, G),
+        ())
+    emit({"phase": "families", "part": "a", "config": full.name,
+          "serve_batch": FAMILY_SERVE, "serve": serve,
+          "tokens_equal": True, "sample": gens["cuda"][0].tolist(),
+          "device_idle_share": trace["idle_share_of_wall"],
+          "trace_top": trace["top"][:6]})
+    del params, tokens, prompts
+    torch.cuda.empty_cache()
+
+    # two layers (one dense, one MoE) at full width, f32: card vs CPU, and
+    # the absorbed decode against the no-cache forward with no drops
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(full, n_layers=2, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+    params2 = device_params(cfg2, FAMILY_SEED + 1, device)
+    cpu_params = to_cpu(params2)
+    toks = torch.from_numpy(rng.integers(1, full.vocab_size, (2, 256))
+                            .astype(np.int32))
+    with torch.inference_mode():
+        cpu_h = tfm.forward(cpu_params, cfg2, toks)[0]
+        cpu_loss = float(tfm.lm_loss(cpu_params, cfg2, {"tokens": toks})[0])
+        gpu_h = tfm.forward(params2, cfg2, toks.to(device))[0].cpu()
+        gpu_loss = float(tfm.lm_loss(params2, cfg2,
+                                     {"tokens": toks.to(device)})[0])
+    err = float((gpu_h - cpu_h).abs().max())
+    check(err <= FAMILY_GATES["deepseek_cpu_hidden_err"]
+          and abs(gpu_loss - cpu_loss) <= FAMILY_GATES["deepseek_cpu_loss"],
+          f"deepseek card vs CPU: hidden {err:.3g}, loss {gpu_loss} vs "
+          f"{cpu_loss}")
+    del cpu_params
+    cfgE = dataclasses.replace(cfg2, moe_capacity_factor=float(
+        cfg2.moe_num_experts))
+    seq = torch.from_numpy(rng.integers(1, full.vocab_size, (2, P + G))
+                           .astype(np.int32)).to(device)
+    dec_err, dec_launches = teacher_forced_err(params2, cfgE, seq, P)
+    check(dec_err <= FAMILY_GATES["decode_logits"] and not any(
+        dec_launches.values()), f"deepseek absorbed decode: logits "
+          f"{dec_err:.3g} from the no-cache forward, launches {dec_launches}")
+    emit({"phase": "families", "part": "a", "config": cfg2.name,
+          "layers": 2, "compute_dtype": "f32", "S": 256,
+          "cpu_hidden_max_abs_err": err,
+          "cpu_gate": FAMILY_GATES["deepseek_cpu_hidden_err"],
+          "loss_card": gpu_loss, "loss_cpu": cpu_loss,
+          "capacity_factor": cfgE.moe_capacity_factor,
+          "decode_vs_forward_logits_max_abs_err": dec_err,
+          "decode_gate": FAMILY_GATES["decode_logits"],
+          "seconds": time.perf_counter() - t0})
+    del params2
+    torch.cuda.empty_cache()
+
+
+def arctic_part(device):
+    """(b) arctic-480b at full width, 2 of its 35 layers, bf16: flash in
+    forward / lm_loss, decode in serve_batch, and the teacher-forced decode
+    at f32 compute.  Returns the launches of the kernels line."""
+    import dataclasses
+
+    from repro_torch.configs import arctic_480b
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    published = arctic_480b.full_config()
+    full = dataclasses.replace(published, n_layers=ARCTIC_LAYERS,
+                               param_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    params = device_params(full, FAMILY_SEED + 2, device)
+    per_layer = n_bytes({"l": params["moe_layers"]}) / ARCTIC_LAYERS
+    emit({"phase": "families", "part": "b", "setup": "params",
+          "config": full.name, "layers": ARCTIC_LAYERS,
+          "of_layers": published.n_layers, "n_params": n_elements(params),
+          "gb": n_bytes(params) / 1e9,
+          "full_depth_gb": (n_bytes(params) + per_layer
+                            * (published.n_layers - ARCTIC_LAYERS)) / 1e9,
+          "seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(FAMILY_SEED + 2)
+    tokens = torch.from_numpy(rng.integers(1, full.vocab_size, (1, 2048))
+                              .astype(np.int32)).to(device)
+    measured = {}
+    for dt in ("bf16", "f32"):
+        cfg = dataclasses.replace(full, compute_dtype=TORCH_DT[dt])
+        out = lm_impls_part(f"arctic {dt}", params, cfg, tokens,
+                            ARCTIC_LAYERS)
+        measured[f"flash_{dt}"] = \
+            out["cuda"]["launches"][f"flash_attention_{dt}"]
+        cos = row_cosines(out["cuda"]["logits"], out["torch"]["logits"])
+        gate = FAMILY_GATES["arctic_cos"][dt]
+        median = float(cos.median())
+        share = float((cos >= gate["row"]).float().mean())
+        check(median >= gate["median"] and share >= gate["share"],
+              f"arctic {dt} logits cuda vs torch: median row cosine "
+              f"{median}, {share:.4f} of rows >= {gate['row']}")
+        row = {"phase": "families", "part": "b", "config": full.name,
+               "compute_dtype": dt, "B": 1, "S": 2048,
+               "heads": {"H": full.n_heads, "KV": full.n_kv_heads,
+                         "G": full.n_heads // full.n_kv_heads,
+                         "d": full.head_dim},
+               "capacity": tfm.moe_capacity(full, 2048),
+               "loss": {impl: float(out[impl]["loss"]) for impl in out},
+               "aux": out["cuda"]["aux"],
+               "logits_median_row_cos": median,
+               "logits_min_row_cos": float(cos.min()),
+               "rows_at_gate_share": share, "gate": gate,
+               "ms": {impl: {"lm_loss": out[impl]["lm_loss_ms"],
+                             "forward": out[impl]["forward_ms"]}
+                      for impl in out},
+               "launches": {impl: out[impl]["launches"] for impl in out}}
+        del out
+        if dt == "bf16":
+            trace = traced("arctic_forward", lambda: tfm.forward(
+                params, dataclasses.replace(cfg, attn_impl="cuda"), tokens),
+                ("flash_fwd",))
+            row.update(device_idle_share=trace["idle_share_of_wall"],
+                       flash_ms=trace["kernels_ms"],
+                       trace_top=trace["top"][:6])
+        emit(row)
+    P, G = FAMILY_SERVE["prompt"], FAMILY_SERVE["gen"]
+    B = FAMILY_SERVE["batch"]
+    prompts = torch.from_numpy(rng.integers(1, full.vocab_size, (B, P))
+                               .astype(np.int32)).to(device)
+    serve = {}
+    for impl in ("cuda", "torch"):
+        cfg = dataclasses.replace(full, attn_impl=impl)
+        gen, launches, serve[impl] = timed_serve(params, cfg, prompts, G)
+        want = {key: 0 for key in launches}
+        if impl == "cuda":
+            want["decode_attention_bf16"] = 3 * ARCTIC_LAYERS * (G - 1)
+            measured["decode_bf16"] = launches["decode_attention_bf16"]
+        check(launches == want, f"arctic serve_batch {impl}: launches "
+              f"{launches}, expected {want}")
+        check(gen.shape == (B, G), f"arctic serve_batch {impl}: "
+              f"{tuple(gen.shape)}")
+    emit({"phase": "families", "part": "b", "config": full.name,
+          "serve_batch": FAMILY_SERVE, "serve": serve,
+          "capacity_prefill": tfm.moe_capacity(full, P),
+          "decode_launches_per_step": ARCTIC_LAYERS})
+    # f32 compute, no drops: the decode kernel's steps against the flash
+    # forward (the bf16 experts are cast to f32 a block at a time)
+    cfg32 = dataclasses.replace(full, compute_dtype=torch.float32,
+                                attn_impl="cuda", moe_capacity_factor=float(
+                                    full.moe_num_experts))
+    seq = torch.from_numpy(rng.integers(1, full.vocab_size, (2, P + G))
+                           .astype(np.int32)).to(device)
+    err, launches = teacher_forced_err(params, cfg32, seq, P)
+    check(launches["decode_attention_f32"] == ARCTIC_LAYERS * G
+          and err <= FAMILY_GATES["decode_logits"],
+          f"arctic f32 decode vs flash forward: logits {err:.3g}, "
+          f"launches {launches}")
+    measured["decode_f32"] = launches["decode_attention_f32"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "families", "part": "b", "config": full.name,
+          "compute_dtype": "f32", "capacity_factor":
+          cfg32.moe_capacity_factor, "P": P, "G": G,
+          "decode_vs_flash_logits_max_abs_err": err,
+          "gate": FAMILY_GATES["decode_logits"],
+          "decode_f32_launches": measured["decode_f32"], "peak_gb": peak})
+    del params
+    torch.cuda.empty_cache()
+    return measured
+
+
+def recsys_batch(cfg, rng, B):
+    from repro_torch.data import synthetic
+    if cfg.model_type == "sasrec":
+        return synthetic.sasrec_batch(rng, cfg.item_vocab, B, cfg.seq_len,
+                                      cfg.n_negatives)
+    if cfg.model_type == "bert4rec":
+        return synthetic.bert4rec_batch(rng, cfg.item_vocab, B, cfg.seq_len,
+                                        cfg.seq_len // 10, cfg.n_negatives)
+    if cfg.model_type == "mind":
+        return synthetic.mind_batch(rng, cfg.item_vocab, B, cfg.seq_len,
+                                    cfg.n_negatives)
+    return synthetic.deepfm_batch(rng, cfg.field_vocab_sizes, B, cfg.max_hot)
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(1.0, float(
+        want.abs().max()))
+
+
+def recsys_part(device):
+    """(c) bert4rec, sasrec, mind and deepfm at their full configs, f32:
+    serve_fn at serve_p99, retrieval at retrieval_cand, loss_fn at batch
+    512, each against the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.core.retrieval import topk_exact
+    from repro_torch.models import recsys as rcs
+    shapes = registry.RECSYS_SHAPES
+    B = shapes["serve_p99"]["batch"]
+    n_cand = shapes["retrieval_cand"]["n_candidates"]
+    gate = FAMILY_GATES["recsys_rel"]
+    for i, arch in enumerate(("bert4rec", "sasrec", "mind", "deepfm")):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(registry.get(arch).full_config(),
+                                  compute_dtype=torch.float32)
+        params = device_params(cfg, FAMILY_SEED + 10 + i, device, rcs)
+        cpu = to_cpu(params)
+        rng = np.random.default_rng(FAMILY_SEED + 10 + i)
+        row = {"phase": "families", "part": "c", "config": cfg.name,
+               "n_params": n_elements(params), "gb": n_bytes(params) / 1e9}
+        # serve_fn: 512 requests, a slate of 1000 candidates
+        batch = recsys_batch(cfg, rng, B)
+        if arch == "deepfm":
+            sb = {"ids": batch["ids"], "valid": batch["valid"]}
+        else:
+            sb = {"hist": batch.get("hist", batch.get("tokens")),
+                  "cand_ids": rng.integers(1, cfg.item_vocab,
+                                           cfg.n_serve_candidates)
+                  .astype(np.int32)}
+        tb = {k: torch.from_numpy(v) for k, v in sb.items()}
+        gb = {k: v.to(device) for k, v in tb.items()}
+        with torch.inference_mode():
+            got = rcs.serve_fn(params, cfg, gb)
+            want = rcs.serve_fn(cpu, cfg, tb)
+            row["serve_ms"] = call_times_ms(
+                lambda: rcs.serve_fn(params, cfg, gb))
+        row["serve_shape"] = list(got.shape)
+        row["serve_rel_err"] = rel_err(got, want)
+        check(bool(torch.isfinite(got).all()) and row["serve_rel_err"]
+              <= gate, f"{arch} serve_fn card vs CPU: {row['serve_rel_err']}")
+        # loss_fn, forward only, batch 512
+        lb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        with torch.inference_mode():
+            gl = float(rcs.loss_fn(params, cfg, {k: v.to(device) for k, v
+                                                 in lb.items()})[0])
+            cl = float(rcs.loss_fn(cpu, cfg, lb)[0])
+        row["loss_card"], row["loss_cpu"] = gl, cl
+        check(math.isfinite(gl) and abs(gl - cl) <= gate * max(1.0, abs(cl)),
+              f"{arch} loss_fn card {gl} vs CPU {cl}")
+        if arch != "deepfm":
+            # retrieval: one user against 10^6 candidates, exact top 100
+            hist = torch.from_numpy(sb["hist"][:1])
+            cand_ids = torch.arange(1, n_cand + 1, dtype=torch.int32)
+
+            def retrieve(p, h, ids):
+                u = rcs.user_embed(p, cfg, h)
+                if u.dim() == 3:            # mind: its K interests
+                    u = u.reshape(-1, u.shape[-1])
+                cand = rcs._item_table(p, cfg).float()[ids.long()]
+                return topk_exact(u.float(), cand, k=100, block=65536)
+
+            with torch.inference_mode():
+                gs, gi = retrieve(params, hist.to(device),
+                                  cand_ids.to(device))
+                cs, ci = retrieve(cpu, hist, cand_ids)
+                row["retrieval_ms"] = call_times_ms(lambda: retrieve(
+                    params, hist.to(device), cand_ids.to(device)))
+            row["retrieval_ids_equal"] = bool(torch.equal(gi.cpu(), ci))
+            row["retrieval_score_err"] = float((gs.cpu() - cs).abs().max())
+            check(row["retrieval_ids_equal"]
+                  and row["retrieval_score_err"] <= 1e-5,
+                  f"{arch} retrieval: ids equal {row['retrieval_ids_equal']},"
+                  f" scores {row['retrieval_score_err']}")
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+        del params, cpu
+        torch.cuda.empty_cache()
+
+
+def graphcast_part(device):
+    """(d) graphcast at its full config (16 layers, d_hidden 512, 227
+    variables) on full_graph_sm and on one minibatch_lg subgraph, f32,
+    against the CPU; then at the config's bf16 on the card."""
+    import dataclasses
+
+    from repro_torch.configs import graphcast, registry
+    from repro_torch.data import sampler, synthetic
+    from repro_torch.models import graphcast as gc
+    shapes = registry.GNN_SHAPES
+    base = dataclasses.replace(graphcast.full_config(),
+                               compute_dtype=torch.float32)
+    rng = np.random.default_rng(FAMILY_SEED + 20)
+
+    def run(name, cfg, batch, cpu_layers):
+        t0 = time.perf_counter()
+        params = device_params(cfg, FAMILY_SEED + 21, device, gc)
+        tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+        gb = {k: v.to(device) for k, v in tb.items()}
+        args = ("node_feat", "src", "dst")
+        with torch.inference_mode():
+            pred = gc.forward(params, cfg, *(gb[k] for k in args))
+            loss = float(gc.loss_fn(params, cfg, gb)[0])
+            ms = {"forward": call_times_ms(lambda: gc.forward(
+                params, cfg, *(gb[k] for k in args)))}
+            bcfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+            bf16_pred = gc.forward(params, bcfg, *(gb[k] for k in args))
+            ms["forward_bf16"] = call_times_ms(lambda: gc.forward(
+                params, bcfg, *(gb[k] for k in args)))
+            # the CPU at cpu_layers of the processor (the card's too)
+            cut = dataclasses.replace(cfg, n_layers=cpu_layers)
+            sub = dict(params, processor=_head_layers(params["processor"],
+                                                      cpu_layers))
+            cpu = to_cpu(sub)
+            card_cut = gc.forward(sub, cut, *(gb[k] for k in args)).cpu()
+            cpu_pred = gc.forward(cpu, cut, *(tb[k] for k in args))
+            cpu_loss = float(gc.loss_fn(cpu, cut, tb)[0])
+            card_loss = float(gc.loss_fn(sub, cut, gb)[0])
+        err = float((card_cut - cpu_pred).abs().max())
+        loss_rel = abs(card_loss - cpu_loss) / max(1.0, abs(cpu_loss))
+        check(pred.shape == (batch["node_feat"].shape[0], cfg.n_vars)
+              and bool(torch.isfinite(pred).all())
+              and bool(torch.isfinite(bf16_pred).all())
+              and math.isfinite(loss), f"graphcast {name}: non-finite")
+        check(err <= FAMILY_GATES["graphcast_err"]
+              and loss_rel <= FAMILY_GATES["graphcast_loss_rel"],
+              f"graphcast {name} card vs CPU: {err:.3g}, loss {card_loss} "
+              f"vs {cpu_loss}")
+        emit({"phase": "families", "part": "d", "config": cfg.name,
+              "shape": name, "layers": cfg.n_layers, "d_hidden":
+              cfg.d_hidden, "d_feat": cfg.d_feat,
+              "nodes": int(batch["node_feat"].shape[0]),
+              "edges": int(batch["src"].shape[0]), "loss": loss,
+              "cpu_layers": cpu_layers, "cpu_max_abs_err": err,
+              "cpu_loss_rel_err": loss_rel, "bf16_vs_f32_max_abs_diff":
+              float((bf16_pred - pred).abs().max()), "ms": ms,
+              "seconds": time.perf_counter() - t0})
+        del params, cpu, sub
+        torch.cuda.empty_cache()
+
+    sm = shapes["full_graph_sm"]
+    batch = synthetic.graph_batch(rng, sm["n_nodes"], sm["n_edges"],
+                                  sm["d_feat"], base.n_vars)
+    run("full_graph_sm", dataclasses.replace(base, d_feat=sm["d_feat"]),
+        batch, base.n_layers)
+    lg = shapes["minibatch_lg"]
+    t0 = time.perf_counter()
+    n = lg["n_nodes"]
+    n_edges = n * MINIBATCH_DEGREE
+    graph = sampler.CSRGraph.from_edges(
+        rng.integers(0, n, n_edges).astype(np.int32),
+        rng.integers(0, n, n_edges).astype(np.int32), n)
+    seeds = rng.choice(n, lg["batch_nodes"], replace=False).astype(np.int64)
+    sub = sampler.sample_subgraph(graph, seeds, lg["fanout"], rng)
+    d_feat = 602                                  # reddit's node features
+    feats = rng.standard_normal((n, d_feat), np.float32)
+    nodes = np.where(sub["nodes"] >= 0, sub["nodes"], 0)
+    mb = {"node_feat": feats[nodes], "src": sub["src"], "dst": sub["dst"],
+          "target": rng.standard_normal((len(nodes), base.n_vars),
+                                        np.float32),
+          "node_mask": sub["node_mask"]}
+    emit({"phase": "families", "part": "d", "shape": "minibatch_lg",
+          "setup": "graph", "nodes": n, "edges": n_edges,
+          "edges_published": lg["n_edges"], "batch_nodes": lg["batch_nodes"],
+          "fanout": list(lg["fanout"]),
+          "subgraph_nodes": int(sub["node_mask"].sum()),
+          "subgraph_edges": int(sub["edge_mask"].sum()),
+          "padded": list(sampler.sampled_subgraph_shape(lg["batch_nodes"],
+                                                        lg["fanout"])),
+          "seconds": time.perf_counter() - t0})
+    del graph, feats
+    run("minibatch_lg", dataclasses.replace(base, d_feat=d_feat), mb,
+        MINIBATCH_CPU_LAYERS)
+    op = shapes["ogb_products"]
+    emit({"phase": "families", "part": "d", "shape": "ogb_products",
+          "run": False, "edge_latents_gb_bf16":
+          op["n_edges"] * base.d_hidden * 2 / 1e9,
+          "why": "its edge latents alone outgrow the card's 80 GB"})
+
+
+def _head_layers(stack, n):
+    if isinstance(stack, dict):
+        return {key: _head_layers(val, n) for key, val in stack.items()}
+    return stack[:n]
+
+
+def families_phase(device):
+    """Phase 7: (a) deepseek-v2-lite-16b, (b) arctic-480b, (c) the four
+    recommenders, (d) graphcast.  Returns arctic's kernel launches."""
+    t_phase = time.perf_counter()
+    deepseek_part(device)
+    measured = arctic_part(device)
+    recsys_part(device)
+    graphcast_part(device)
+    emit({"phase": "families", "ok": True,
+          "seconds": time.perf_counter() - t_phase})
+    return measured
+
+
+def device_params(cfg, seed: int, device, model=None):
+    """Random parameters made on the card from a seed with the scheme of
+    ``model.init_numpy`` (``model`` defaults to the transformer): norm
+    scales 1, biases 0, every other leaf N(0, ``model.init_std``), each at
+    its dtype in ``model.param_dtypes`` (an MoE router in f32).  Each
+    leaf is drawn in place a matrix of its trailing two axes at a time, so
+    no f32 copy of a bf16 leaf is ever made: arctic's stacked experts are
+    8.9 G elements a weight.  The 55 GB of a 2-layer arctic are made in
+    seconds instead of minutes of host sampling and upload."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.models import nn
+    from repro_torch.models import transformer as tfm
+    model = model or tfm
     gen = torch.Generator(device=device).manual_seed(seed)
+    dtypes = dict(ckpt.flatten(model.param_dtypes(cfg)))
 
-    def build(node, name):
+    def build(node, path, name):
         if isinstance(node, dict):
-            return {key: build(node[key], key) for key in sorted(node)}
+            return {key: build(node[key], f"{path}/{key}" if path else key,
+                               key) for key in sorted(node)}
+        dt = dtypes[path]
         if name == "scale":
-            return torch.ones(node, device=device)
-        if name in ("bias", "b", "bq", "bk", "bv"):
-            return torch.zeros(node, device=device)
-        std = 0.02 if name == "table" else 1.0 / math.sqrt(node[-2])
-        return torch.randn(node, generator=gen, device=device).mul_(std)
+            return torch.ones(node, dtype=dt, device=device)
+        if name in nn.ZERO_LEAVES:
+            return torch.zeros(node, dtype=dt, device=device)
+        t = torch.empty(node, dtype=dt, device=device)
+        std = float(model.init_std(name, node))
+        for mat in (t.view(-1, *node[-2:]) if len(node) > 2 else [t]):
+            mat.normal_(0.0, std, generator=gen)
+        return t
 
-    return build(tfm.param_shapes(cfg), "")
+    return build(model.param_shapes(cfg), "", "")
 
 
 def decode_step_part(part, device, params, full, shape, trace=False):
@@ -3822,13 +4452,15 @@ def main(argv=None) -> int:
     emit(topk_instantiations())
     emit(decode_instantiations())
     rows, whole_rows = kernel_phase(device)
-    flash_rows = flash_kernel_phase(device)
-    decode_rows = decode_kernel_phase(device)
+    flash_rows, flash_arctic = flash_kernel_phase(device)
+    decode_rows, decode_arctic = decode_kernel_phase(device)
     # launches come only from the paths' runs; without them, none
     launches = {dt: None for dt in rows}
     whole_launches = {dt: None for dt in whole_rows}
     flash_launches = {dt: None for dt in flash_rows}
     decode_launches = {dt: None for dt in decode_rows}
+    family_launches = {f"{kind}_{dt}": None for kind in ("flash", "decode")
+                       for dt in TORCH_DT}
     serve_rows = {}
     fleet_launches = {dt: None for dt in FLEET_DTYPES}
     if "--train-only" in argv:
@@ -3843,6 +4475,8 @@ def main(argv=None) -> int:
         ds = write_dataset()
         launches, main_results = main_phase(device, ds)
         fleet_launches = fleet_phase(device, ds, main_results)
+    elif "--families-only" in argv:
+        family_launches = families_phase(device)
     elif "--kernels-only" not in argv:
         encoder_phase(device)
         ds = write_dataset()
@@ -3857,6 +4491,7 @@ def main(argv=None) -> int:
         flash_launches = {dt: lm_launches[dt] for dt in flash_rows}
         decode_launches = {dt: lm_launches[f"decode_{dt}"]
                            for dt in decode_rows}
+        family_launches = families_phase(device)
     emit({"kernels": [
         kernel_row(f"topk_mips_{dt}", SOURCE, REPLACES[dt], launches[dt],
                    row) for dt, row in rows.items()] + [
@@ -3873,7 +4508,13 @@ def main(argv=None) -> int:
         for dt, row in flash_rows.items()] + [
         kernel_row(f"decode_attention_{dt}", DECODE_SOURCE, DECODE_REPLACES,
                    decode_launches[dt], row)
-        for dt, row in decode_rows.items()]})
+        for dt, row in decode_rows.items()] + [
+        kernel_row(f"flash_attention_{dt}_arctic", FLASH_SOURCE,
+                   FLASH_REPLACES, family_launches[f"flash_{dt}"], row)
+        for dt, row in flash_arctic.items()] + [
+        kernel_row(f"decode_attention_{dt}_arctic", DECODE_SOURCE,
+                   DECODE_REPLACES, family_launches[f"decode_{dt}"], row)
+        for dt, row in decode_arctic.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

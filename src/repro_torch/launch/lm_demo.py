@@ -6,7 +6,10 @@ prompts, then decodes greedily.  ``serve_batch`` runs at any size.  Prefill
 takes the chunked attention path, as in the reference; with
 ``attn_impl="cuda"`` each decode step runs the decode-attention kernel once
 per layer (24 launches per step for qwen2-0.5b, 24 x (gen - 1) per
-``serve_batch`` call) and the flash-attention kernel never.
+``serve_batch`` call) and the flash-attention kernel never.  MoE configs
+(arctic-480b) route each layer's MLP through their experts; MLA
+(deepseek-v2-lite-16b) attends to its compressed cache with plain products
+and launches no attention kernel.
 
 This is a transformer-stack demo, not the retrieval serving tier.
 
@@ -24,6 +27,10 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.models import transformer as tfm
+
+#: the registry's LM architectures
+LM_ARCHS = ("deepseek-67b", "qwen2-0.5b", "qwen2-72b", "arctic-480b",
+            "deepseek-v2-lite-16b")
 
 
 def serve_batch(params, cfg, prompts: torch.Tensor, gen: int
@@ -43,7 +50,7 @@ def serve_batch(params, cfg, prompts: torch.Tensor, gen: int
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=LM_ARCHS)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=24)

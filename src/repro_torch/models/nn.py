@@ -96,15 +96,110 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0) -> torch.Tensor:
     return 1.0 / (theta ** exponent.double()).float()
 
 
+_FREQ_CACHE = {}
+
+
+def _device_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    """:func:`rope_frequencies` on ``device``, copied there once: a copy
+    from host memory on every call would wait for the card's queue to
+    drain (twice a layer).  Made outside inference mode, so an autograd
+    pass may read the tensor that a serving call cached."""
+    key = (head_dim, float(theta), torch.device(device))
+    freqs = _FREQ_CACHE.get(key)
+    if freqs is None:
+        with torch.inference_mode(False):
+            freqs = rope_frequencies(head_dim, theta).to(device)
+        _FREQ_CACHE[key] = freqs
+    return freqs
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding of x (..., seq, n_heads, head_dim) at ``positions``
     (broadcastable to (..., seq)).  Dimension d pairs with d + head_dim/2
     (the "rotate_half" convention); angles and products in f32."""
-    inv_freq = rope_frequencies(x.shape[-1], theta).to(x.device)
+    inv_freq = _device_frequencies(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * inv_freq       # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]             # (..., seq, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def unstack(stack, n: int):
+    """The ``n`` per-layer trees of views of the stacked ``(L, ...)``
+    leaves.  Each leaf is unbound once, so under autograd its gradient is
+    assembled by one ``stack``, where indexing each layer's slice would
+    build and add a zero-filled ``(L, ...)`` gradient per layer."""
+    if isinstance(stack, dict):
+        per_key = {key: unstack(val, n) for key, val in stack.items()}
+        return [{key: per_key[key][i] for key in stack} for i in range(n)]
+    return stack.unbind(0)
+
+
+# ---------------------------------------------------------------------------
+# Random parameters from a seed, and segment reductions
+# ---------------------------------------------------------------------------
+
+#: leaf names the reference's inits fill with zeros (norm scales: ones)
+ZERO_LEAVES = ("bias", "b", "bq", "bk", "bv")
+
+
+def init_numpy(shapes, seed: int, std) -> Any:
+    """Random parameters for a tree of leaf shapes, as nested dicts of
+    numpy f32 arrays drawn from ``numpy.random.default_rng(seed)`` in
+    sorted-key order: leaves named ``scale`` are ones, those in
+    :data:`ZERO_LEAVES` zeros, and every other leaf N(0, ``std(name,
+    shape)``), ``name`` being the leaf's key."""
+    rng = np.random.default_rng(seed)
+
+    def build(node, name):
+        if isinstance(node, dict):
+            return {key: build(node[key], key) for key in sorted(node)}
+        if name == "scale":
+            return np.ones(node, np.float32)
+        if name in ZERO_LEAVES:
+            return np.zeros(node, np.float32)
+        return rng.standard_normal(node, dtype=np.float32) \
+            * np.float32(std(name, node))
+
+    return build(shapes, "")
+
+
+def fan_in_std(shape) -> float:
+    """1/sqrt(fan_in), fan_in being the second-to-last axis: the input
+    axis of a product weight, stacked or not (the reference's
+    ``fanin_init``)."""
+    return 1.0 / np.sqrt(shape[-2])
+
+
+def _segments(segment_ids: torch.Tensor, num_segments: int):
+    """The stable order that sorts ``segment_ids``, and each segment's
+    length, found on the ids' device (no size read back to the host)."""
+    order = torch.argsort(segment_ids, stable=True)
+    bounds = torch.searchsorted(
+        segment_ids[order],
+        torch.arange(num_segments + 1, device=segment_ids.device))
+    return order, bounds.diff()
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum`` for ids in ``[0, num_segments)``: rows of
+    ``data`` (n, ...) summed per segment, empty segments 0.  The rows are
+    sorted stably by segment and each segment is summed in that order by
+    ``torch.segment_reduce``, so the result does not depend on the run (a
+    scatter-add on a card does)."""
+    order, lengths = _segments(segment_ids, num_segments)
+    return torch.segment_reduce(data[order], "sum", lengths=lengths,
+                                initial=0, unsafe=True)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_max`` for ids in ``[0, num_segments)``: empty
+    segments are ``-inf``, as the reference's."""
+    order, lengths = _segments(segment_ids, num_segments)
+    return torch.segment_reduce(data[order], "max", lengths=lengths,
+                                unsafe=True)

@@ -113,8 +113,16 @@ def test_init_numpy_matches_param_shapes():
 
 
 def test_lm_configs_are_not_yet_ported():
-    """The dense LM family is ported; MoE and MLA configs still raise."""
+    """The whole LM family is ported: MoE and MLA configs, which raised
+    before their slice, build their layer stacks."""
     _, tc = _configs("smoke", "f32")
-    for change in ({"moe_num_experts": 4}, {"mla": True}):
-        with pytest.raises(NotImplementedError):
-            ttfm.param_shapes(dataclasses.replace(tc, **change))
+    moe = dataclasses.replace(tc, norm_style="pre", act="swiglu",
+                              moe_num_experts=4, moe_top_k=2, moe_d_ff=8,
+                              first_k_dense=1)
+    shapes = ttfm.param_shapes(moe)
+    assert shapes["moe_layers"]["moe"]["w1"] == \
+        (tc.n_layers - 1, 4, tc.d_model, 8)
+    assert shapes["dense_layers"]["mlp"]["w1"][0] == 1
+    mla = ttfm.param_shapes(dataclasses.replace(tc, mla=True,
+                                                kv_lora_rank=16))
+    assert "wdkv" in mla["dense_layers"]["attn"]
