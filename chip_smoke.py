@@ -16,6 +16,10 @@
                                          # (5e) on its checkpoints
     python3 chip_smoke.py --families-only  # the kernel phases, then the
                                            # families phase (7)
+    python3 chip_smoke.py --launch-only  # the kernel phases, then the
+                                         # launch phase (8); with --trace
+                                         # (b) again after (a), each cell
+                                         # with a profiled call
 
 Phases, each printing one JSON line:
 
@@ -263,6 +267,33 @@ Phases, each printing one JSON line:
                 f32 (full depth on full_graph_sm, 2 layers on the
                 minibatch); ogb_products is not run (its edge latents alone
                 are 63 GB in bf16).
+  8. launch   — the launch steps (``repro_torch.launch.steps`` /
+                ``dryrun`` / ``analysis``): (a) ``python -m
+                repro_torch.launch.dryrun --all --skip-multipod --device
+                cuda`` (one process per cell, up to 8 at a time, host
+                work only, run while (b) times the card): each of the 43
+                cells of ``steps.all_cells()`` built on the 16 x 16
+                production mesh and its full variant and cost variants run
+                on meta tensors; every record ``ok`` (the line gives each
+                cell's roofline bottleneck and step time, GiB a device and
+                the seconds of its meta run); (b) the paper's three
+                dr-bert-base cells built on ``make_validator_mesh(1)``
+                (one ``cuda:0``) and run at full shape on the card with
+                their arguments drawn from a seed: ``train_contrastive``
+                (256 queries x 2 passages, one AdamW step), ``encode_corpus``
+                (4096 x 128 tokens), ``retrieve`` (6980 queries over
+                8,841,823 unit rows x 768, f32, k = 1000); per cell three
+                warm-ups and the median of five calls (CUDA events), the
+                peak memory, the port's roofline step time of the same cell
+                at one device and model flops per second as a share of the
+                bf16 peak (retrieve: also of the f32 peak), no kernel
+                launch, and a gate: encode_corpus's first 64 rows against
+                the port on the CPU (row cosine >= 0.999), retrieve's
+                top-1000 ids of the first 64 queries equal to
+                ``torch.topk`` of the same products block by block,
+                train_contrastive's loss equal to a separate
+                ``contrastive_loss`` within 1e-5 relative and every updated
+                leaf finite and changed.
 
 Kernel launches are counted only while a path runs (the main path for
 topk_mips, also read over each run of the train phase, the subset phase's
@@ -4437,6 +4468,309 @@ def kernel_row(name, source, replaces, launches, row):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the launch steps (dry run of every cell; the paper's three cells)
+# ---------------------------------------------------------------------------
+
+PAPER_CELLS = ("train_contrastive", "encode_corpus", "retrieve")
+LAUNCH_WARMUP = 3
+LAUNCH_GATE_ROWS = 64
+
+
+def launch_dryrun_start():
+    """(a), started: ``python -m repro_torch.launch.dryrun --all
+    --skip-multipod --device cuda`` in a session of its own, its output to
+    a file (one process per cell, up to 8 at a time).  Each of the cells
+    of ``steps.all_cells()`` is built on the 16 x 16 production mesh and
+    run on meta tensors: host work only, so it runs while part (b) times
+    the paper's cells on the card."""
+    out = os.path.join(WORK, "dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(WORK, exist_ok=True)
+    log = open(os.path.join(WORK, "dryrun.log"), "w")
+    jobs = max(1, min(8, os.cpu_count() or 1))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--skip-multipod", "--device", "cuda", "--jobs", str(jobs),
+         "--out", out], stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    return {"proc": proc, "log": log, "out": out, "jobs": jobs,
+            "t0": time.perf_counter()}
+
+
+def launch_dryrun_stop(run) -> None:
+    """Stops the dry run's process group if it still runs."""
+    proc = run["proc"]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    run["log"].close()
+
+
+def launch_dryrun_finish(run):
+    """(a), read: waits for the dry run, then every record must be ``ok``
+    and there must be one per cell."""
+    from repro_torch.launch.steps import all_cells
+    try:
+        rc = run["proc"].wait(timeout=900)
+    finally:
+        launch_dryrun_stop(run)
+    seconds = time.perf_counter() - run["t0"]
+    out = run["out"]
+    recs = []
+    for name in sorted(os.listdir(out)) if os.path.isdir(out) else []:
+        with open(os.path.join(out, name)) as f:
+            recs.append(json.load(f))
+    ok = [r for r in recs if r.get("ok")]
+    emit({"phase": "launch", "part": "a", "cells": len(recs),
+          "ok_cells": len(ok), "expected": len(all_cells()),
+          "seconds": seconds, "jobs": run["jobs"], "exit": rc,
+          "nvidia_smi": nvidia_smi(),
+          "hardware": ok[0]["hardware"] if ok else None,
+          # per cell: bottleneck, roofline step_time_s, GiB a device, the
+          # seconds of the full variant's meta run
+          "cells_roofline": {
+              f"{r['arch']}/{r['shape']}": [
+                  r["roofline"]["bottleneck"], r["roofline"]["step_time_s"],
+                  r["memory"]["per_device_total"] / 2**30,
+                  r["timings"]["full_single_s"]] for r in ok}})
+    failed = [f"{r['arch']}/{r['shape']}: {r.get('error')}" for r in recs
+              if not r.get("ok")]
+    with open(os.path.join(WORK, "dryrun.log")) as f:
+        tail = f.read()[-3000:]
+    check(rc == 0 and len(ok) == len(recs) == len(all_cells()),
+          f"dry run: {len(ok)} ok of {len(recs)} records, "
+          f"{len(all_cells())} cells; failed {failed}; tail {tail}")
+
+
+def launch_args(spec, device, seed: int):
+    """``spec.abstract_args`` made real on the card: parameters drawn on
+    the card from ``seed`` with the reference's scheme
+    (:func:`device_params`), optimizer state as its init makes it (zeros),
+    token batches from a numpy generator (ids in [1, vocab), each row valid
+    for a random length of at least 8 and 0 past it), query and corpus
+    rows unit vectors drawn on the card from ``seed`` (the corpus as in
+    serve phase d)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import pytree
+    cfg = registry.get("dr-bert-base").full_config()
+    rng = np.random.default_rng(seed)
+
+    def tokens_and_mask(shape):
+        lengths = rng.integers(8, shape[-1] + 1, size=shape[:-1])
+        mask = np.arange(shape[-1]) < lengths[..., None]
+        ids = rng.integers(1, cfg.vocab_size, size=shape) * mask
+        return (torch.from_numpy(ids.astype(np.int32)).to(device),
+                torch.from_numpy(mask).to(device))
+
+    def unit_rows(shape, gen_seed):
+        gen = torch.Generator(device=device).manual_seed(gen_seed)
+        x = torch.randn(tuple(shape), generator=gen, device=device)
+        return x.div_(x.norm(dim=1, keepdim=True))
+
+    def like(real, abstract):
+        got = [(tuple(t.shape), t.dtype) for t in pytree.tree_leaves(real)]
+        want = [(tuple(t.shape), t.dtype)
+                for t in pytree.tree_leaves(abstract)]
+        check(got == want, f"{spec.cell}: materialised args differ from "
+              "the abstract ones")
+        return real
+
+    if spec.kind == "retrieval":
+        q_abs, c_abs = spec.abstract_args
+        return unit_rows(q_abs.shape, seed), unit_rows(c_abs.shape, seed + 1)
+    params = like(device_params(cfg, seed, device), spec.abstract_args[0])
+    if spec.kind == "encode":
+        return (params,) + tokens_and_mask(tuple(spec.abstract_args[1].shape))
+    opt = pytree.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                                device=device),
+                          spec.abstract_args[1])
+    batch = {}
+    for side in ("q", "p"):
+        batch[f"{side}_tokens"], batch[f"{side}_mask"] = tokens_and_mask(
+            tuple(spec.abstract_args[2][f"{side}_tokens"].shape))
+    return like(params, spec.abstract_args[0]), \
+        like(opt, spec.abstract_args[1]), like(batch, spec.abstract_args[2])
+
+
+def launch_gate(shape_name, spec, args, out):
+    """The cell's check of something other than the step, as a callable
+    that returns the gate's record (and raises if it fails): encode_corpus
+    rows against the port on the CPU (row cosine >= 0.999; both compute in
+    bf16 and round differently), deferred (the card's rows and the inputs
+    are copied to the host now, the CPU encode runs when called);
+    retrieve's top-k ids of the first queries against ``torch.topk`` of
+    the same products block by block (ties to the lower id, as the step's
+    stable merge); train's loss against a separate ``contrastive_loss``
+    (1e-5 relative), every updated leaf finite and changed."""
+    from repro_torch.configs import registry
+    from repro_torch.core import pytree
+    n = LAUNCH_GATE_ROWS
+    if shape_name == "encode_corpus":
+        params, toks, mask = args
+        host = (to_cpu(params), toks[:n].cpu(), mask[:n].cpu(),
+                out[:n].cpu())
+
+        def encode_gate():
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                want = spec.fn(*host[:3])
+            cos = row_cosines(host[3], want)
+            gate = {"rows": n, "min_row_cosine": float(cos.min()),
+                    "median_row_cosine": float(cos.median()),
+                    "cpu_s": time.perf_counter() - t0}
+            check(gate["min_row_cosine"] >= 0.999,
+                  f"encode_corpus vs the CPU: {gate}")
+            return gate
+
+        return encode_gate
+    if shape_name == "retrieve":
+        q, c = args
+        scores, ids = out
+        k = registry.get("dr-bert-base").shapes["retrieve"]["k"]
+        block = 65536
+        cand_s, cand_i = [], []
+        with torch.inference_mode():
+            for b0 in range(0, c.shape[0], block):
+                # the step's product shape (all queries), so its bits
+                s = (q @ c[b0:b0 + block].T)[:n]
+                v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+                cand_s.append(v)
+                cand_i.append(i + b0)
+            cs, ci = torch.cat(cand_s, 1), torch.cat(cand_i, 1)
+            by_id = torch.argsort(ci, dim=1)
+            cs, ci = cs.gather(1, by_id), ci.gather(1, by_id)
+            order = torch.sort(cs, dim=1, descending=True,
+                               stable=True).indices[:, :k]
+            want = ci.gather(1, order)
+        gate = {"queries": n, "k": k,
+                "ids_equal": bool(torch.equal(ids[:n].long(), want)),
+                "max_score_diff": float((scores[:n] - cs.gather(1, order))
+                                        .abs().max())}
+        check(gate["ids_equal"], f"retrieve vs torch.topk: {gate}")
+        return lambda: gate
+    from repro_torch.models.biencoder import biencoder_spec, contrastive_loss
+    params, _, batch = args
+    new_params, _, metrics = out
+    shape = registry.get("dr-bert-base").shapes["train_contrastive"]
+    enc = biencoder_spec(registry.get("dr-bert-base").full_config(),
+                         q_max_len=shape["q_len"], p_max_len=shape["p_len"])
+    with torch.no_grad():
+        loss, _ = contrastive_loss(params, enc, batch)
+    rel = abs(float(metrics["loss"]) - float(loss)) / abs(float(loss))
+    leaves = list(zip(pytree.tree_leaves(params),
+                      pytree.tree_leaves(new_params)))
+    finite = all(bool(torch.isfinite(b).all()) for _, b in leaves)
+    changed = sum(bool((a != b).any()) for a, b in leaves)
+    gate = {"loss": float(metrics["loss"]), "loss_separate": float(loss),
+            "rel": rel, "leaves": len(leaves), "finite": finite,
+            "changed": changed}
+    check(rel <= 1e-5 and finite and changed == len(leaves),
+          f"train_contrastive: {gate}")
+    return lambda: gate
+
+
+def launch_cell_part(device, shape_name, hw, host="dry run running",
+                     trace=False):
+    """(b) One of the paper's cells at full shape on the card:
+    ``build_step("dr-bert-base", shape, make_validator_mesh(1))``, its
+    arguments materialised (:func:`launch_args`), ``spec.fn`` warmed up
+    and timed (median of five by CUDA events), the peak memory, the port's
+    roofline of the same cell at one device (``analysis.measure`` on a
+    one-device meta mesh), model flops per second as a share of the
+    card's peaks, and the cell's gate; no kernel launch.  ``host`` names
+    what else ran on the host meanwhile; ``trace`` adds one call under the
+    profiler (device time by kernel, busy and idle share).  Returns a
+    callable that finishes the gate and prints the cell's line (the
+    encode gate's CPU run can wait for a quiet host)."""
+    from repro_torch.distributed import compat
+    from repro_torch.launch import analysis
+    from repro_torch.launch.mesh import make_validator_mesh
+    from repro_torch.launch.steps import build_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = build_step("dr-bert-base", shape_name,
+                      make_validator_mesh(1, device=device.type))
+    one = compat.make_mesh((1, 1), ("data", "model"), [torch.device("meta")])
+    m = analysis.measure(build_step("dr-bert-base", shape_name, one), 1, hw)
+    mf = spec.meta["model_flops"]
+    roof = analysis.roofline(m, mf, hw)
+    args = launch_args(spec, device, seed=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    grad = torch.enable_grad if spec.kind == "train" else \
+        torch.inference_mode
+    with grad():
+        out, first_s = timed(lambda: spec.fn(*args))
+        for _ in range(LAUNCH_WARMUP - 1):
+            spec.fn(*args)
+        ms = call_times_ms(lambda: spec.fn(*args))
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gate = launch_gate(shape_name, spec, args, out)
+    sec = ms["median"] / 1e3
+    row = {"phase": "launch", "part": "b", "cell": spec.cell,
+           "kind": spec.kind, "ms": ms, "first_call_s": first_s,
+           "warmup": LAUNCH_WARMUP, "peak_gb": peak_gb,
+           "model_flops": mf, "tokens": spec.meta["tokens"],
+           "share_bf16_peak": mf / sec / hw.peak_flops,
+           "roofline": {key: roof[key] for key in (
+               "step_time_s", "bottleneck", "compute_s", "memory_s",
+               "memory_raw_s", "compute_typed_s", "step_time_typed_s")},
+           "roofline_flops": m.flops, "roofline_hbm_bytes": m.hbm_bytes_est,
+           "step_time_over_ms": roof["step_time_s"] / sec,
+           "step_time_typed_over_ms": roof["step_time_typed_s"] / sec,
+           "setup_s": setup_s, "launches": launches, "host": host,
+           "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": nvidia_smi()}
+    if spec.kind == "retrieval":            # an f32 product
+        row["share_f32_peak"] = mf / sec / hw.peak_f32
+    check(not any(launches.values()),
+          f"{spec.cell}: the step launched a kernel: {launches}")
+    if trace:
+        with grad():
+            emit(traced(f"launch_{shape_name}", lambda: spec.fn(*args), ()))
+    del args, out
+
+    def finish():
+        row["gate"] = gate()
+        emit(row)
+
+    return finish
+
+
+def launch_phase(device, trace: bool = False):
+    """Phase 8: (a) the dry run of every launch cell, on the host's cores,
+    while (b) times the paper's three dr-bert-base cells at full shape on
+    the card (each bound by the card, not by the host).  ``trace`` runs
+    (b) once more after (a) has ended, each cell with a profiled call."""
+    from repro_torch.launch import analysis
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = launch_dryrun_start()
+    try:
+        hw = analysis.h100_sxm()
+        finish = [launch_cell_part(device, shape_name, hw)
+                  for shape_name in PAPER_CELLS]
+        launch_dryrun_finish(run)
+    finally:
+        launch_dryrun_stop(run)
+    for done in finish:                     # the encode gate's CPU run
+        done()
+    if trace:
+        for shape_name in PAPER_CELLS:
+            launch_cell_part(device, shape_name, hw, host="quiet",
+                             trace=True)()
+    emit({"phase": "launch", "ok": True,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -4477,6 +4811,8 @@ def main(argv=None) -> int:
         fleet_launches = fleet_phase(device, ds, main_results)
     elif "--families-only" in argv:
         family_launches = families_phase(device)
+    elif "--launch-only" in argv:
+        launch_phase(device, trace="--trace" in argv)
     elif "--kernels-only" not in argv:
         encoder_phase(device)
         ds = write_dataset()
@@ -4492,6 +4828,7 @@ def main(argv=None) -> int:
         decode_launches = {dt: lm_launches[f"decode_{dt}"]
                            for dt in decode_rows}
         family_launches = families_phase(device)
+        launch_phase(device, trace="--trace" in argv)
     emit({"kernels": [
         kernel_row(f"topk_mips_{dt}", SOURCE, REPLACES[dt], launches[dt],
                    row) for dt, row in rows.items()] + [

@@ -31,12 +31,14 @@ import torch
 
 def _checked(device) -> torch.device:
     """``device`` as a ``torch.device`` with an explicit CUDA index; raises
-    when the device is not available in this process."""
+    when the device is not available in this process.  ``meta`` is always
+    available: a mesh of meta devices describes a layout (the production
+    meshes of ``launch/mesh.py``) and holds no data."""
     dev = torch.device(device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
-        raise ValueError(f"mesh devices are cpu or cuda, got {dev}")
+        raise ValueError(f"mesh devices are cpu, cuda or meta, got {dev}")
     index = 0 if dev.index is None else dev.index
     if not torch.cuda.is_available() or index >= torch.cuda.device_count():
         raise RuntimeError(f"mesh device {dev} is not available "
@@ -70,6 +72,12 @@ class DeviceMesh:
         return int(self.devices.size)
 
     @property
+    def is_meta(self) -> bool:
+        """True for a mesh of meta devices: a layout, where no shard holds
+        data (see :func:`check_placeable`)."""
+        return self.home.type == "meta"
+
+    @property
     def home(self) -> torch.device:
         """The first device: where merged, replicated results land."""
         return self.devices.flat[0]
@@ -85,6 +93,21 @@ class DeviceMesh:
     def __repr__(self) -> str:
         return (f"DeviceMesh({dict(self.shape)}, "
                 f"devices={[str(d) for d in self.devices.flat]})")
+
+
+def check_placeable(mesh: DeviceMesh, tensor) -> None:
+    """Raises unless ``tensor`` may be placed on ``mesh``'s devices: a meta
+    mesh takes only meta tensors, since moving data to a meta device would
+    drop it silently.  (A meta tensor split over a meta mesh moves nothing;
+    that is how a dry run runs a sharded step.)"""
+    if mesh.is_meta and not (isinstance(tensor, torch.Tensor)
+                             and tensor.device.type == "meta"):
+        where = tensor.device if isinstance(tensor, torch.Tensor) \
+            else type(tensor).__name__
+        raise RuntimeError(
+            "a mesh of meta devices describes a layout and holds no data: "
+            f"cannot place data ({where}) onto it; build the mesh over cpu "
+            "or cuda devices to run a sharded path")
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],

@@ -63,6 +63,17 @@ def param_shapes(cfg: GraphCastConfig) -> Dict[str, Any]:
                           "node_mlp": _mlp_shapes(2 * D, D, D, L)}}
 
 
+def param_axes(cfg: GraphCastConfig) -> Dict[str, Any]:
+    """:func:`param_shapes`' tree with each leaf's logical axis names, as
+    the reference's ``init`` gives them; the processor's leading
+    ``n_layers`` dim is unnamed."""
+    mlp = {"l1": {"w": ("gnn_in", "gnn_hidden"), "b": ("gnn_hidden",)},
+           "l2": {"w": ("gnn_hidden", "gnn_out"), "b": ("gnn_out",)},
+           "norm": {"scale": ("gnn_out",), "bias": ("gnn_out",)}}
+    return {"node_encoder": mlp, "edge_encoder": mlp, "decoder": mlp,
+            "processor": {"edge_mlp": mlp, "node_mlp": mlp}}
+
+
 def param_dtypes(cfg: GraphCastConfig) -> Dict[str, Any]:
     """:func:`param_shapes`' tree with ``param_dtype`` at every leaf."""
     def build(node):
@@ -104,7 +115,10 @@ def _aggregate(messages, dst, n_nodes: int, aggregator: str):
         return nn.segment_max(messages, dst, n_nodes)
     if aggregator == "mean":
         s = nn.segment_sum(messages, dst, n_nodes)
-        c = torch.bincount(dst, minlength=n_nodes).to(s.dtype)
+        # the in-degree as an f32 segment sum of ones (exact below 2**24):
+        # a bincount's size depends on the data, which a meta run lacks
+        ones = torch.ones(dst.shape, dtype=torch.float32, device=dst.device)
+        c = nn.segment_sum(ones, dst, n_nodes).to(s.dtype)
         return s / c[:, None].clamp(min=1)
     raise ValueError(aggregator)
 

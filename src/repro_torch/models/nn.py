@@ -9,7 +9,7 @@ embeddings run in f32 and cast back.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -165,6 +165,21 @@ def init_numpy(shapes, seed: int, std) -> Any:
             * np.float32(std(name, node))
 
     return build(shapes, "")
+
+
+def abstract_init(model, cfg) -> Tuple[Any, Any]:
+    """``(params, axes)`` of ``model`` (a module with ``param_shapes``,
+    ``param_dtypes`` and ``param_axes``: transformer, recsys, graphcast) at
+    ``cfg``: meta-device tensors of each leaf's shape and dtype, and the
+    matching logical-axes tree (the reference's ``nn.abstract_init`` of its
+    ``init``).  Nothing is allocated."""
+    def build(shapes, dtypes):
+        if isinstance(shapes, dict):
+            return {key: build(shapes[key], dtypes[key]) for key in shapes}
+        return torch.empty(shapes, dtype=dtypes, device="meta")
+
+    return (build(model.param_shapes(cfg), model.param_dtypes(cfg)),
+            model.param_axes(cfg))
 
 
 def fan_in_std(shape) -> float:

@@ -179,6 +179,26 @@ def param_shapes(cfg: RecsysConfig) -> Dict[str, Any]:
     raise ValueError(cfg.model_type)
 
 
+def param_axes(cfg: RecsysConfig) -> Dict[str, Any]:
+    """:func:`param_shapes`' tree with each leaf's logical axis names, as
+    the reference's ``init`` gives them: tables ``("table_rows",
+    "embed")``, mind's ``("embed", "embed2")`` transform and
+    ``("interests", "seq")`` routing logits, deepfm's MLP ``("gnn_in",
+    "gnn_hidden")`` and its 0-d bias ``()``."""
+    if cfg.model_type in ("bert4rec", "sasrec"):
+        return {"trunk": tfm.param_axes(_trunk_cfg(cfg))}
+    table = ("table_rows", "embed")
+    if cfg.model_type == "mind":
+        return {"item_embed": table, "w_trans": ("embed", "embed2"),
+                "routing_init": ("interests", "seq")}
+    if cfg.model_type == "deepfm":
+        return {"embed": table, "lin": table, "bias": (),
+                "mlp": {f"l{i}": {"w": ("gnn_in", "gnn_hidden"),
+                                  "b": ("gnn_hidden",)}
+                        for i in range(len(cfg.mlp_dims) + 1)}}
+    raise ValueError(cfg.model_type)
+
+
 def param_dtypes(cfg: RecsysConfig) -> Dict[str, Any]:
     """:func:`param_shapes`' tree with each leaf's dtype: ``param_dtype``,
     except mind's ``routing_init`` and deepfm's ``bias``, which the

@@ -200,6 +200,66 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
     return shapes
 
 
+def param_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """:func:`param_shapes`' tree with each leaf's logical axis names, as
+    the reference's ``init`` gives them (``repro/models/transformer.py``):
+    one name per dim, a stacked layer's leading ``L`` dim unnamed.  The
+    sharding rules (``distributed/sharding.py``) map the names onto mesh
+    axes."""
+    _check(cfg)
+    post = cfg.norm_style == "post"
+
+    def norm(name="embed"):
+        axes = {"scale": (name,)}
+        if post:
+            axes["bias"] = (name,)
+        return axes
+
+    def mlp():
+        if cfg.act == "swiglu":
+            return {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"),
+                    "w2": ("mlp", "embed")}
+        return {"w1": {"w": ("embed", "mlp"), "b": ("mlp",)},
+                "w2": {"w": ("mlp", "embed"), "b": ("embed",)}}
+
+    def attn():
+        if cfg.mla:
+            return {"wq": ("embed", "heads"), "wdkv": ("embed", "kv_lora"),
+                    "kv_norm": {"scale": ("kv_lora",)},
+                    "wuk": ("kv_lora", "heads"), "wuv": ("kv_lora", "heads"),
+                    "wo": ("heads", "embed")}
+        axes = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+                "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+        if cfg.qkv_bias:
+            axes.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+        return axes
+
+    def stack(moe):
+        layer = {"attn": attn(), "attn_norm": norm(), "mlp_norm": norm()}
+        if moe:
+            layer["moe"] = {"router": ("embed", "expert"),
+                            "w1": ("expert", "embed", "mlp"),
+                            "w3": ("expert", "embed", "mlp"),
+                            "w2": ("expert", "mlp", "embed")}
+            if cfg.moe_num_shared:
+                layer["moe"]["shared"] = mlp()
+        if not moe or cfg.moe_mode == "residual":
+            layer["mlp"] = mlp()
+        return layer
+
+    n_dense, n_moe = _group_sizes(cfg)
+    axes = {"embed": {"table": ("vocab", "embed")}, "final_norm": norm()}
+    if n_dense:
+        axes["dense_layers"] = stack(moe=False)
+    if n_moe:
+        axes["moe_layers"] = stack(moe=True)
+    if cfg.max_position_embeddings:
+        axes["pos_embed"] = {"table": ("pos", "embed")}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = {"w": ("embed", "vocab")}
+    return axes
+
+
 def param_dtypes(cfg: TransformerConfig) -> Dict[str, Any]:
     """:func:`param_shapes`' tree with each leaf's dtype: ``param_dtype``,
     except the MoE router, which the reference keeps in f32."""
