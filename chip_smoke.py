@@ -20,6 +20,8 @@
                                          # launch phase (8); with --trace
                                          # (b) again after (a), each cell
                                          # with a profiled call
+    python3 chip_smoke.py --examples-only  # the kernel phases, then the
+                                           # examples phase (9)
 
 Phases, each printing one JSON line:
 
@@ -60,7 +62,10 @@ Phases, each printing one JSON line:
                 k=100) at each dtype (``"shape": "whole_corpus"``): one
                 launch per window of ``ops._windows``, held and timed as
                 above, with ``wrapper_ms`` for the wrapper as the engine
-                calls it.
+                calls it.  Then the quickstart twin's call (f32, Q=60, a
+                chunk of N=128 rows of D=32, k=100, with the carry;
+                ``"shape": "quickstart"``), held and timed as the main
+                path's.
   3. flash    — the flash-attention kernel (f32, bf16) at the LM path's shape
                 (B=4, H=14, KV=2, S=T=2048, d=64, causal, on the trunk's
                 strided views) and the qwen2-72b head geometry (B=1, H=64,
@@ -94,7 +99,15 @@ Phases, each printing one JSON line:
                 f32, bf16 and int8 and ``--impl torch`` at f32: empty errors,
                 one ledger row per step with the reference's keys, one kernel
                 launch per corpus chunk and checkpoint, and equal f32 metrics
-                between the two impls.
+                between the two impls.  All at the default ``--scan_window``
+                8: the engine's dispatches are counted (``step`` /
+                ``step_window`` calls), one chunk each under cuda, one
+                window of the 8 chunks under torch; then ``--impl torch``
+                at ``--scan_window`` 1 and 3 (a halving tail: 3, 3, 1, 1),
+                whose TREC runs must be byte-identical to the window-8
+                run's and whose metrics equal; a ``"part": "scan_window"``
+                line gives each window's dispatches and ``encode_corpus_s``
+                / ``total_s``.
   5b. subset  — the paper's subset and rerank path on the main phase's data:
                 (a) the port's lexical baseline run (top 100, 30% of query
                 tokens dropped) as a TREC run and ``repro_torch.core.
@@ -266,7 +279,14 @@ Phases, each printing one JSON line:
                 at f32 and bf16 on the card, the card against the CPU at
                 f32 (full depth on full_graph_sm, 2 layers on the
                 minibatch); ogb_products is not run (its edge latents alone
-                are 63 GB in bf16).
+                are 63 GB in bf16); (e) first, MoE routing ties:
+                ``_moe_block`` at arctic-480b's routing geometry (128
+                experts, top 2, d_model 7168, experts cut to 64 wide), 2 x
+                192 tokens, f32 and bf16, with a zero router and with pairs
+                of equal router columns: the experts chosen equal the
+                CPU's, [0, 1] for every token under the zero router (the
+                lower expert first on equal probabilities, as
+                ``jax.lax.top_k``).
   8. launch   — the launch steps (``repro_torch.launch.steps`` /
                 ``dryrun`` / ``analysis``): (a) ``python -m
                 repro_torch.launch.dryrun --all --skip-multipod --device
@@ -294,6 +314,16 @@ Phases, each printing one JSON line:
                 train_contrastive's loss equal to a separate
                 ``contrastive_loss`` within 1e-5 relative and every updated
                 leaf finite and changed.
+  9. examples — each of the eleven ``examples/<name>_torch.py`` twins in
+                this process on the card at its original's default sizes
+                (quickstart, train_with_control, lazy_handoff,
+                async_vs_sync, subset_fidelity, multi_task_validation,
+                serve_live, fleet_validation, distributed_validation,
+                observability, recsys_asyncval), its own asserts live: one
+                line each with its seconds and what its original prints;
+                then the quickstart again with ``impl="cuda"``: one
+                topk_mips launch per corpus chunk and checkpoint, metrics
+                within 1e-6 of the torch route's.
 
 Kernel launches are counted only while a path runs (the main path for
 topk_mips, also read over each run of the train phase, the subset phase's
@@ -304,8 +334,11 @@ the LM phase's ``lm_loss`` for flash attention, its ``serve_batch`` calls
 for decode attention: the three timed bf16 calls and the f32 one; the
 families phase's arctic ``lm_loss`` for its ``_arctic`` flash bf16 row,
 its f32 forward for the f32 one, its three timed bf16 ``serve_batch``
-calls and its f32 teacher-forced steps for the decode rows), with every
-count set to 0 just before it.  Then a
+calls and its f32 teacher-forced steps for the decode rows; the examples
+phase's ``impl="cuda"`` quickstart for the ``_quickstart`` row, whose
+times are the kernel phase's ``"shape": "quickstart"`` row: 60 queries, a
+chunk of 128 rows of 32 dims, k = 100), with every count set to 0 just
+before it.  Then a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero before that line.  It
@@ -315,6 +348,7 @@ to ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -341,6 +375,9 @@ PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12,
 ELEM_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
 # the kernel phase's whole-corpus topk_mips call (the materialized engine's)
 WHOLE_CORPUS = {"Q": 256, "N": 65536, "D": 768, "k": 100}
+# (Q, N, D, k, n_valid) of the quickstart twin's topk_mips call: 60 queries,
+# corpus chunks of 128 rows of the toy retriever's 32 dims, k = 100
+QUICKSTART_SHAPE = (60, 128, 32, 100, 128)
 REPLACES = {"f32": "src/repro/kernels/topk_mips/kernel.py:135",
             "bf16": "src/repro/kernels/topk_mips/kernel.py:135",
             "int8": "src/repro/kernels/topk_mips/kernel.py:176"}
@@ -509,55 +546,64 @@ def kernel_phase(device):
         # the main path's call: one chunk folded into the engine carry
         for k in (100, 1000):
             for n_valid in (N, 700):
-                q, c = rand(Q, D), rand(N, D)
-                run_s, run_i = ops.topk_mips_chunk(
-                    q, rand(N, D), torch.full((Q, k), float("-inf"),
-                                              device=device),
-                    torch.zeros((Q, k), dtype=torch.int32, device=device),
-                    base=0, score_dtype=dt)
-                qk, ck, qs, cs = plain_inputs(dt, q, c)
-                base = 5 * N
-
-                def kernel():
-                    return ops._topk_cuda(dt, qk, ck, qs, cs, k_target=k,
-                                          n_valid=n_valid,
-                                          carry=(run_s, run_i), base=base)
-
-                def plain():
-                    return plain_chunk(dt, qk, ck, qs, cs, run_s, run_i,
-                                       base, n_valid)
-
-                got = ops.topk_mips_chunk(q, c, run_s, run_i, base=base,
-                                          n_valid=n_valid, score_dtype=dt)
-                torch.cuda.synchronize()
-                err = compare(dt, got, plain())
-                compare(dt, kernel(), got, exact_ties=True)
-                ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
-                dev_ms, by_kernel = device_ms(f"topk_{dt}_{k}_{n_valid}",
-                                              kernel, TOPK_KERNELS)
-                library_ms = cuda_time_ms(
-                    lambda: library_call(dt, qk, ck, qs, cs, k))
-                nbytes = (Q + N) * D * ELEM_BYTES[dt] + 4 * Q * k * 4
-                if dt == "int8":
-                    nbytes += (Q + N) * 4
-                t_bytes = nbytes / HBM_BYTES_S * 1e3
-                t_ops = 2 * Q * n_valid * D / PEAK_OPS_S[dt] * 1e3
-                row = {"phase": "kernels", "variant": dt, "Q": Q, "N": N,
-                       "n_valid": n_valid, "D": D, "k": k,
-                       "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                       "device_ms_by_kernel": by_kernel,
-                       "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": max(t_bytes, t_ops),
-                       "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations"}
+                row = chunk_row(device, rand, dt, Q, N, D, k, n_valid)
                 emit(row)
                 if k == 100 and n_valid == N:
                     rows[dt] = row
     whole = whole_corpus_rows(device, rand)
+    # the quickstart twin's call (phase 9, impl="cuda"): the toy retriever's
+    # 32-wide rows, its 60 queries, a chunk of 128, k=100, with a carry
+    quick = chunk_row(device, rand, "f32", *QUICKSTART_SHAPE)
+    quick["shape"] = "quickstart"
+    emit(quick)
     emit({"phase": "kernels", "ok": True,
           "checked_launches": dict(ops.launches),
           "seconds": time.perf_counter() - t_phase})
-    return rows, whole
+    return rows, whole, quick
+
+
+def chunk_row(device, rand, dt, Q, N, D, k, n_valid):
+    """One engine step through the kernel (a chunk of N rows, ``n_valid``
+    of them real, folded into a full (Q, k) carry) held against its plain
+    version on the card and timed beside it and the library yardstick:
+    the kernel phase's row."""
+    from repro_torch.kernels.topk_mips import ops
+    q, c = rand(Q, D), rand(N, D)
+    run_s, run_i = ops.topk_mips_chunk(
+        q, rand(N, D), torch.full((Q, k), float("-inf"), device=device),
+        torch.zeros((Q, k), dtype=torch.int32, device=device),
+        base=0, score_dtype=dt)
+    qk, ck, qs, cs = plain_inputs(dt, q, c)
+    base = 5 * N
+
+    def kernel():
+        return ops._topk_cuda(dt, qk, ck, qs, cs, k_target=k,
+                              n_valid=n_valid, carry=(run_s, run_i),
+                              base=base)
+
+    def plain():
+        return plain_chunk(dt, qk, ck, qs, cs, run_s, run_i, base, n_valid)
+
+    got = ops.topk_mips_chunk(q, c, run_s, run_i, base=base,
+                              n_valid=n_valid, score_dtype=dt)
+    torch.cuda.synchronize()
+    err = compare(dt, got, plain())
+    compare(dt, kernel(), got, exact_ties=True)
+    ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
+    dev_ms, by_kernel = device_ms(f"topk_{dt}_{Q}_{N}_{D}_{k}_{n_valid}",
+                                  kernel, TOPK_KERNELS)
+    library_ms = cuda_time_ms(lambda: library_call(dt, qk, ck, qs, cs, k))
+    nbytes = (Q + N) * D * ELEM_BYTES[dt] + 4 * Q * k * 4
+    if dt == "int8":
+        nbytes += (Q + N) * 4
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 2 * Q * n_valid * D / PEAK_OPS_S[dt] * 1e3
+    return {"phase": "kernels", "variant": dt, "Q": Q, "N": N,
+            "n_valid": n_valid, "D": D, "k": k, "max_abs_err": err,
+            "ms": ms, "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def whole_corpus_rows(device, rand):
@@ -1013,6 +1059,7 @@ def main_phase(device, ds):
     from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.configs import dr_bert_base
     from repro_torch.core import cli
+    from repro_torch.core import engine as engine_lib
     from repro_torch.models import transformer as tfm
 
     work = WORK
@@ -1026,53 +1073,144 @@ def main_phase(device, ds):
           "seconds": time.perf_counter() - t0})
 
     n_chunks = -(-n_docs // chunk)
-    results, measured = {}, {}
-    for impl, dt in (("cuda", "f32"), ("cuda", "bf16"), ("cuda", "int8"),
-                     ("torch", "f32")):
-        out = os.path.join(work, f"out_{impl}_{dt}")
+    results, measured, windows = {}, {}, {}
+    # the four runs at the default --scan_window (8: the torch route folds
+    # the corpus's 8 chunks in one dispatch, the cuda route one chunk a
+    # launch), then the torch route at windows 1 and 3 (3, 3, 1, 1)
+    for impl, dt, window in (("cuda", "f32", None), ("cuda", "bf16", None),
+                             ("cuda", "int8", None), ("torch", "f32", None),
+                             ("torch", "f32", 1), ("torch", "f32", 3)):
+        tag = f"{impl}_{dt}" + (f"_w{window}" if window else "")
+        out = os.path.join(work, f"out_{tag}")
         reset_all_launches()
         t0 = time.perf_counter()
-        rc = cli.main([
-            "--query_file", os.path.join(work, "q.jsonl"),
-            "--candidate_dir", os.path.join(work, "corpus"),
-            "--ckpts_dir", os.path.join(work, "ckpts"),
-            "--qrel_file", os.path.join(work, "qrels.txt"),
-            "--q_max_len", "32", "--p_max_len", "128",
-            "--metrics", "MRR@10", "Recall@100", "--write_run",
-            "--impl", impl, "--score_dtype", dt, "--chunk_size", str(chunk),
-            "--batch_size", "256", "--output_dir", out])
+        with stage_dispatches() as dispatches:
+            rc = cli.main([
+                "--query_file", os.path.join(work, "q.jsonl"),
+                "--candidate_dir", os.path.join(work, "corpus"),
+                "--ckpts_dir", os.path.join(work, "ckpts"),
+                "--qrel_file", os.path.join(work, "qrels.txt"),
+                "--q_max_len", "32", "--p_max_len", "128",
+                "--metrics", "MRR@10", "Recall@100", "--write_run",
+                "--impl", impl, "--score_dtype", dt, "--chunk_size",
+                str(chunk), "--batch_size", "256", "--output_dir", out]
+                + (["--scan_window", str(window)] if window else []))
         seconds = time.perf_counter() - t0
         counts = all_launches()
-        check(rc == 0, f"cli {impl}/{dt} returned {rc} (validation errors)")
+        check(rc == 0, f"cli {tag} returned {rc} (validation errors)")
         with open(os.path.join(out, "asyncval_ledger.jsonl")) as f:
             rows = [json.loads(line) for line in f if line.strip()]
         check([r["step"] for r in rows] == list(steps),
-              f"{impl}/{dt}: ledger steps {[r['step'] for r in rows]}")
+              f"{tag}: ledger steps {[r['step'] for r in rows]}")
         for r in rows:
-            check(set(r) == LEDGER_KEYS, f"{impl}/{dt}: ledger keys "
-                  f"{sorted(r)}")
+            check(set(r) == LEDGER_KEYS, f"{tag}: ledger keys {sorted(r)}")
             check(r["score_dtype"] == dt and r["engine"] == "streaming",
-                  f"{impl}/{dt}: row {r['engine']}/{r['score_dtype']}")
+                  f"{tag}: row {r['engine']}/{r['score_dtype']}")
             check(all(math.isfinite(v) for v in r["metrics"].values()),
-                  f"{impl}/{dt}: metrics {r['metrics']}")
+                  f"{tag}: metrics {r['metrics']}")
         want = {key: 0 for key in counts}
         if impl == "cuda":
             want[f"topk_mips_{dt}"] = n_chunks * len(steps)
-        check(counts == want, f"{impl}/{dt}: kernel launches {counts}, "
+        check(counts == want, f"{tag}: kernel launches {counts}, "
               f"expected {want}")
+        # the engine's dispatches: the cuda stage takes one chunk a step
+        # (window 1), the torch stage the default window's schedule
+        w = window or 8
+        want_steps = {"step": n_chunks, "step_window": 0} if impl == "cuda" \
+            else {"step": sum(n == 1 for _, n in
+                              engine_lib.plan_schedule(n_chunks, w)),
+                  "step_window": sum(n > 1 for _, n in
+                                     engine_lib.plan_schedule(n_chunks, w))}
+        want_steps = {key: v * len(steps) for key, v in want_steps.items()}
+        check(dispatches == want_steps, f"{tag}: engine dispatches "
+              f"{dispatches}, expected {want_steps}")
+        row = {"phase": "main", "impl": impl, "score_dtype": dt,
+               "launches": counts, "seconds": seconds,
+               "metrics": {r["step"]: r["metrics"] for r in rows},
+               "timings": {r["step"]: r["timings"] for r in rows}}
+        if impl == "torch":
+            windows[w] = {"window": w, "out": out, "rows": rows,
+                          "dispatches": sum(dispatches.values()),
+                          "by_kind": dict(dispatches), "seconds": seconds}
+        if window:
+            row["scan_window"] = window
+            emit(row)
+            continue
         results[(impl, dt)] = rows
         if impl == "cuda":
             measured[dt] = counts[f"topk_mips_{dt}"]
-        emit({"phase": "main", "impl": impl, "score_dtype": dt,
-              "launches": counts, "seconds": seconds,
-              "metrics": {r["step"]: r["metrics"] for r in rows},
-              "timings": {r["step"]: r["timings"] for r in rows}})
+        emit(row)
     for a, b in zip(results[("cuda", "f32")], results[("torch", "f32")]):
         for name, v in a["metrics"].items():
             check(abs(v - b["metrics"][name]) <= 1e-6,
                   f"step {a['step']} {name}: cuda {v} vs torch "
                   f"{b['metrics'][name]}")
+    main_window_part(windows, steps)
     return measured, results
+
+
+@contextlib.contextmanager
+def stage_dispatches():
+    """Count the streaming engine's dispatches to the retrieval stages
+    (``step`` and ``step_window`` calls from the engine, not the steps a
+    window folds) while the block runs."""
+    from repro_torch.core import engine
+    counts = {"step": 0, "step_window": 0}
+    real = {(cls, name): cls.__dict__[name]
+            for cls in (engine.StreamTopKStage, engine.CudaStreamTopKStage)
+            for name in counts if name in cls.__dict__}
+    inside = threading.local()
+
+    def counted(name, fn):
+        def call(self, *args, **kwargs):
+            depth = getattr(inside, "depth", 0)
+            if not depth:
+                counts[name] += 1
+            inside.depth = depth + 1
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                inside.depth = depth
+        return call
+
+    for (cls, name), fn in real.items():
+        setattr(cls, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for (cls, name), fn in real.items():
+            setattr(cls, name, fn)
+
+
+def main_window_part(windows, steps):
+    """``--scan_window``: the torch route's runs at windows 1, 3 and 8 give
+    byte-identical TREC runs and equal ledger metrics; one line with each
+    run's ``encode_corpus_s`` / ``total_s`` by step and its dispatches."""
+    base = windows[8]
+    for w, run in windows.items():
+        for step in steps:
+            name = f"asyncval_step{step}.trec"
+            with open(os.path.join(run["out"], name), "rb") as f:
+                got = f.read()
+            with open(os.path.join(base["out"], name), "rb") as f:
+                want = f.read()
+            check(got == want, f"--scan_window {w}: {name} differs from "
+                  "the window-8 run")
+        for got, want in zip(run["rows"], base["rows"]):
+            check(got["metrics"] == want["metrics"],
+                  f"--scan_window {w} step {got['step']}: metrics "
+                  f"{got['metrics']} vs {want['metrics']}")
+    emit({"phase": "main", "part": "scan_window", "impl": "torch",
+          "score_dtype": "f32", "runs_identical": True,
+          "runs": [{"window": w, "dispatches": run["dispatches"],
+                    "dispatches_by_kind": run["by_kind"],
+                    "seconds": run["seconds"],
+                    "encode_corpus_s": {r["step"]:
+                                        r["timings"]["encode_corpus_s"]
+                                        for r in run["rows"]},
+                    "total_s": {r["step"]: r["timings"]["total_s"]
+                                for r in run["rows"]}}
+                   for w, run in sorted(windows.items())]})
 
 
 # ---------------------------------------------------------------------------
@@ -3997,6 +4135,7 @@ def families_phase(device):
     """Phase 7: (a) deepseek-v2-lite-16b, (b) arctic-480b, (c) the four
     recommenders, (d) graphcast.  Returns arctic's kernel launches."""
     t_phase = time.perf_counter()
+    moe_ties_part(device)
     deepseek_part(device)
     measured = arctic_part(device)
     recsys_part(device)
@@ -4004,6 +4143,93 @@ def families_phase(device):
     emit({"phase": "families", "ok": True,
           "seconds": time.perf_counter() - t_phase})
     return measured
+
+
+MOE_TIE_TOKENS = (2, 192)        # (batch, sequence) of the tie check
+MOE_TIE_EXPERT_FF = 64           # expert width of the tie check
+
+
+def moe_ties_part(device):
+    """(e) MoE routing ties (C2) on the card: ``_moe_block`` at arctic-480b's
+    routing geometry (E = 128 experts, top 2, d_model 7168; the experts cut
+    to ``MOE_TIE_EXPERT_FF`` wide) on 2 x 192 tokens, at f32 and bf16
+    compute, with a zero router (every probability 1/128) and with a router
+    whose first 64 columns are 32 equal pairs.  Inputs and router are
+    multiples of 1/4 and 1/8 below 1, so every logit is exact on either
+    device and equal columns give equal probabilities.  The experts each
+    token is routed to (as ``_moe_dispatch`` receives them) must equal the
+    CPU's, and be [0, 1] for every token under the zero router."""
+    import dataclasses
+    from repro_torch.configs import arctic_480b
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    full = arctic_480b.full_config()
+    E, D, F = full.moe_num_experts, full.d_model, MOE_TIE_EXPERT_FF
+    rng = np.random.default_rng(FAMILY_SEED)
+    x = (rng.integers(-3, 4, size=MOE_TIE_TOKENS + (D,)) / 4) \
+        .astype(np.float32)
+    experts = {key: (0.02 * rng.standard_normal(shape)).astype(np.float32)
+               for key, shape in (("w1", (E, D, F)), ("w3", (E, D, F)),
+                                  ("w2", (E, F, D)))}
+    dup = (rng.integers(-3, 4, size=(D, E)) / 8).astype(np.float32)
+    dup[:, 1:E // 2:2] = dup[:, 0:E // 2:2]
+    routers = {"zero": np.zeros((D, E), np.float32), "dup": dup}
+    seen = []
+    real = tfm._moe_dispatch
+
+    def spy(xs, expert_idx, *rest):
+        seen.append(expert_idx)
+        return real(xs, expert_idx, *rest)
+
+    cases = []
+    tfm._moe_dispatch = spy
+    try:
+        for dt in ("f32", "bf16"):
+            cfg = dataclasses.replace(full, moe_d_ff=F,
+                                      compute_dtype=TORCH_DT[dt])
+            for case, router in routers.items():
+                idx, outs = {}, {}
+                for where, dev in (("card", device),
+                                   ("cpu", torch.device("cpu"))):
+                    p = {key: torch.from_numpy(v).to(dev) for key, v in
+                         dict(experts, router=router).items()}
+                    seen.clear()
+                    with torch.inference_mode():
+                        out, _ = tfm._moe_block(
+                            p, torch.from_numpy(x).to(dev, TORCH_DT[dt]),
+                            cfg)
+                    check(len(seen) == 1, f"moe ties: {len(seen)} "
+                          "dispatches")
+                    idx[where] = seen[0].cpu()
+                    outs[where] = out.float().cpu()
+                    del p
+                probs = torch.softmax(
+                    torch.from_numpy(x).to(TORCH_DT[dt]).float()
+                    @ torch.from_numpy(router), dim=-1)
+                top = torch.gather(probs, -1, idx["cpu"])
+                tied = int((top[..., 0] == top[..., 1]).sum())
+                row = {"score_dtype": dt, "router": case,
+                       "tokens": int(np.prod(MOE_TIE_TOKENS)),
+                       "tied_tokens": tied,
+                       "expert_idx_equal": bool(torch.equal(idx["card"],
+                                                            idx["cpu"])),
+                       "out_max_abs_diff": float(
+                           (outs["card"] - outs["cpu"]).abs().max())}
+                check(row["expert_idx_equal"], f"moe ties {dt}/{case}: "
+                      "the card routes otherwise than the CPU")
+                if case == "zero":
+                    check(bool((idx["card"] == torch.arange(2)).all())
+                          and tied == row["tokens"],
+                          f"moe ties {dt}/zero: not [0, 1] everywhere")
+                else:
+                    check(0 < tied < row["tokens"],
+                          f"moe ties {dt}/dup: {tied} tied tokens")
+                cases.append(row)
+    finally:
+        tfm._moe_dispatch = real
+    emit({"phase": "families", "part": "moe_ties", "experts": E,
+          "top_k": full.moe_top_k, "d_model": D, "expert_ff": F,
+          "cases": cases, "seconds": time.perf_counter() - t0})
 
 
 def device_params(cfg, seed: int, device, model=None):
@@ -4771,6 +4997,139 @@ def launch_phase(device, trace: bool = False):
           "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the examples' torch twins
+# ---------------------------------------------------------------------------
+
+EXAMPLE_TWINS = ("quickstart", "train_with_control", "lazy_handoff",
+                 "async_vs_sync", "subset_fidelity", "multi_task_validation",
+                 "serve_live", "fleet_validation", "distributed_validation",
+                 "observability", "recsys_asyncval")
+
+
+def load_twin(name):
+    """``examples/<name>_torch.py`` as a module (the examples are not a
+    package)."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def twin_summary(name, out):
+    """What the original example prints, from its twin's return value."""
+    if name == "quickstart":
+        return {"subset_size": out["subset_size"],
+                "n_chunks": out["n_chunks"], "best_step": out["best_step"],
+                "metrics": {r["step"]: r["metrics"]
+                            for r in out["results"]}}
+    if name == "train_with_control":
+        ens = out["ensemble"]
+        return {"stopped_early": out["stopped_early"],
+                "stop_verdict": out["stop_verdict"],
+                "trained_steps": out["trained_steps"],
+                "best_step": out["best_step"],
+                "kept_checkpoints": out["kept_checkpoints"],
+                "ensemble": ens and {k: ens[k] for k in
+                                     ("step", "members", "metrics")},
+                "events": len(out["event_kinds"]),
+                "event_kinds": sorted(set(out["event_kinds"]))}
+    if name == "lazy_handoff":
+        return {key: out[key] for key in (
+            "watcher_p50_s", "handoff_p50_s", "gap", "n_verdicts",
+            "n_snapshot", "parity")}
+    if name == "async_vs_sync":
+        return {"speedup": out["speedup"], "rows": [
+            {key: r[key] for key in ("mode", "total_s", "train_s",
+                                     "validate_s", "n_validated",
+                                     "mrr_last")} for r in out["rows"]]}
+    if name == "subset_fidelity":
+        fid = out["fidelity"]
+        return {"full": fid["full"]["curve"], "subsets": {
+            key: {k: fid[key][k] for k in ("size", "spearman",
+                                           "mean_delta",
+                                           "best_ckpt_agreement")}
+            for key in fid if key != "full"}}
+    if name == "multi_task_validation":
+        return {"best_step": out["best_step"],
+                "best_value": out["best_value"], "stop": out["stop"],
+                "metrics": [(r["step"], r["task"], r["metrics"]["MRR@10"])
+                            for r in out["rows"]]}
+    if name == "serve_live":
+        return {key: out[key] for key in (
+            "n_responses", "drops", "swaps", "served", "live_step",
+            "removed")}
+    if name == "fleet_validation":
+        return {"validated_steps": out["validated_steps"],
+                "units_by_worker": {w: len(u) for w, u in
+                                    out["units_by_worker"].items()},
+                "best_step": out["best_step"],
+                "decisions_replayed": len(out["decisions"])}
+    if name == "distributed_validation":
+        return {key: out[key] for key in ("agree", "chunked_items",
+                                          "chunked_s")}
+    if name == "observability":
+        return {key: out[key] for key in (
+            "n_events", "workers_tracing", "served_step",
+            "ckpt_to_verdict_p50_s", "ckpt_to_verdict_p99_s",
+            "n_verdicts")} | {"stages": len(out["stages"])}
+    return {"metrics": {r["step"]: r["metrics"] for r in out["results"]}}
+
+
+def examples_phase(device):
+    """Phase 9: each example's torch twin (``examples/<name>_torch.py``)
+    in this process on the card at its original's default sizes, its own
+    asserts live; one line per twin with its seconds and what its original
+    prints (its own output goes to ``build/chip_smoke/examples/<name>.log``).
+    Then the quickstart again with ``impl="cuda"``: its topk_mips launches
+    (one per corpus chunk and checkpoint), and its metrics within 1e-6 of
+    the torch route's.  Returns those launches."""
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "examples")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    outs = {}
+
+    def run(name, tag=None, **kw):
+        tag = tag or name
+        twin = load_twin(name)
+        params = dict(device=device.type, **kw)
+        if "workdir" in twin.main.__kwdefaults__:
+            params["workdir"] = os.path.join(root, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with open(os.path.join(root, f"{tag}.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            out = twin.main(**params)
+        seconds = time.perf_counter() - t0
+        emit({"phase": "examples", "name": tag, "seconds": seconds,
+              **twin_summary(name, out)})
+        outs[tag] = out
+        return out
+
+    for name in EXAMPLE_TWINS:
+        run(name)
+    reset_all_launches()
+    quick = run("quickstart", tag="quickstart_cuda", impl="cuda")
+    launches = all_launches()
+    want = {key: 0 for key in launches}
+    want["topk_mips_f32"] = quick["n_chunks"] * quick["n_validated"]
+    check(launches == want, f"quickstart impl=cuda: kernel launches "
+          f"{launches}, expected {want}")
+    for a, b in zip(outs["quickstart"]["results"], quick["results"]):
+        for key, v in a["metrics"].items():
+            check(abs(v - b["metrics"][key]) <= 1e-6,
+                  f"quickstart step {a['step']} {key}: torch {v} vs cuda "
+                  f"{b['metrics'][key]}")
+    emit({"phase": "examples", "ok": True, "twins": len(EXAMPLE_TWINS),
+          "quickstart_cuda_launches": launches["topk_mips_f32"],
+          "seconds": time.perf_counter() - t_phase})
+    return launches["topk_mips_f32"]
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -4785,7 +5144,7 @@ def main(argv=None) -> int:
     emit(flash_instantiations())
     emit(topk_instantiations())
     emit(decode_instantiations())
-    rows, whole_rows = kernel_phase(device)
+    rows, whole_rows, quick_row = kernel_phase(device)
     flash_rows, flash_arctic = flash_kernel_phase(device)
     decode_rows, decode_arctic = decode_kernel_phase(device)
     # launches come only from the paths' runs; without them, none
@@ -4797,6 +5156,7 @@ def main(argv=None) -> int:
                        for dt in TORCH_DT}
     serve_rows = {}
     fleet_launches = {dt: None for dt in FLEET_DTYPES}
+    quickstart_launches = None
     if "--train-only" in argv:
         ds = write_dataset()
         lexical_subset(ds)
@@ -4813,6 +5173,8 @@ def main(argv=None) -> int:
         family_launches = families_phase(device)
     elif "--launch-only" in argv:
         launch_phase(device, trace="--trace" in argv)
+    elif "--examples-only" in argv:
+        quickstart_launches = examples_phase(device)
     elif "--kernels-only" not in argv:
         encoder_phase(device)
         ds = write_dataset()
@@ -4829,6 +5191,7 @@ def main(argv=None) -> int:
                            for dt in decode_rows}
         family_launches = families_phase(device)
         launch_phase(device, trace="--trace" in argv)
+        quickstart_launches = examples_phase(device)
     emit({"kernels": [
         kernel_row(f"topk_mips_{dt}", SOURCE, REPLACES[dt], launches[dt],
                    row) for dt, row in rows.items()] + [
@@ -4840,6 +5203,8 @@ def main(argv=None) -> int:
         for dt, row in serve_rows.items()] + [
         kernel_row(f"topk_mips_{dt}_fleet", SOURCE, REPLACES[dt],
                    fleet_launches[dt], rows[dt]) for dt in FLEET_DTYPES] + [
+        kernel_row("topk_mips_f32_quickstart", SOURCE, REPLACES["f32"],
+                   quickstart_launches, quick_row)] + [
         kernel_row(f"flash_attention_{dt}", FLASH_SOURCE, FLASH_REPLACES,
                    flash_launches[dt], row)
         for dt, row in flash_rows.items()] + [

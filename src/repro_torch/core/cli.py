@@ -35,9 +35,11 @@ with ``--watch``), with ``--worker_id``, ``--capabilities`` (``mesh_size``
 defaults to ``torch.cuda.device_count()`` under ``--device cuda`` and to 1
 under ``--device cpu``), ``--lease_ttl`` and ``--max_abandons``; ``python
 -m repro_torch.launch.fleet --workers N -- python -m repro_torch.core.cli
---worker ...`` runs N of them.  ``--scan_window`` (the reference's
-multi-chunk XLA dispatch) is not ported and raises
-``NotImplementedError``.
+--worker ...`` runs N of them.  ``--scan_window`` (default 8) is the
+number of corpus chunks the streaming engine stages and folds per dispatch
+under ``--impl torch``; the chunks are folded one at a time in chunk order,
+so results are bit-equal at every window, and ``--impl cuda`` and the mesh
+stages take one chunk per step.
 """
 
 from __future__ import annotations
@@ -54,10 +56,6 @@ import torch
 from repro_torch.core.registry import (ENCODERS, ENGINES, IMPLS, MODES,
                                        SAMPLERS, ensure_builtins,
                                        register_encoder)
-
-#: flag -> its value when unused; any other value raises "not yet ported"
-_NOT_PORTED = {"scan_window": None}
-
 
 @register_encoder("arch")
 def _arch_encoder(args):
@@ -361,17 +359,16 @@ def _parser() -> argparse.ArgumentParser:
                     help="distributed retry budget: abandons of one unit "
                          "before the fleet marks it failed; must match "
                          "across the fleet")
-    ap.add_argument("--scan_window", default=None, help="not yet ported")
+    ap.add_argument("--scan_window", type=int, default=8,
+                    help="chunks folded per dispatch in the streaming "
+                         "engine (the torch stage; results do not depend "
+                         "on it)")
     return ap
 
 
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    for name, unused in _NOT_PORTED.items():
-        if getattr(args, name) != unused:
-            raise NotImplementedError(f"--{name} is not yet ported to "
-                                      "repro_torch")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) but no CUDA device "
                            "is visible; pass --device cpu to run on the CPU")
@@ -453,7 +450,9 @@ def main(argv=None) -> int:
     vcfg = ValidationConfig(metrics=tuple(args.metrics), mode=args.mode,
                             k=args.retrieve_k, batch_size=args.batch_size,
                             impl=args.impl, engine=args.engine,
-                            chunk_size=args.chunk_size, staging=args.staging,
+                            chunk_size=args.chunk_size,
+                            scan_window=args.scan_window,
+                            staging=args.staging,
                             staging_depth=args.staging_depth,
                             token_backing=args.token_backing,
                             mmap_dir=mmap_dir,

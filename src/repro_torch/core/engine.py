@@ -37,8 +37,14 @@ rows_sharding`), every shard encodes and scores its rows on its device,
 and the shards' results merge one mesh axis at a time, innermost first
 (:class:`ShardedStreamTopKStage`, :class:`ShardedStreamRerankStage`); the
 queries are encoded the same way.  This is the reference's ``shard_map``
-step as an explicit loop over the shards.  The scan-window dispatch is not
-ported.
+step as an explicit loop over the shards.
+
+``scan_window`` (``ValidationConfig.scan_window``, default 8) is the
+reference's windowed dispatch: the ``torch`` stage takes that many chunks
+per schedule entry, staged in one copy, and folds them one at a time in
+chunk order through its per-chunk step, so the results are bit for bit
+those of ``window=1``.  The ``cuda`` and sharded stages stay at one chunk
+per step, as the reference's Pallas and ``shard_map`` stages do.
 """
 
 from __future__ import annotations
@@ -413,18 +419,29 @@ class CandidateMap:
 # ---------------------------------------------------------------------------
 
 
-def plan_schedule(n_chunks: int) -> List[Tuple[int, int]]:
-    """Dispatch schedule ``[(first_chunk, n_chunks_in_batch), ...]``, one
-    chunk per step: the reference's schedule at ``window=1`` (its windowed
-    dispatch is not ported yet)."""
-    return [(ci, 1) for ci in range(n_chunks)]
+def plan_schedule(n_chunks: int, window: int = 1) -> List[Tuple[int, int]]:
+    """Dispatch schedule ``[(first_chunk, n_chunks_in_batch), ...]``.
+
+    ``window`` > 1 groups that many chunks per dispatch with a halving tail
+    (the reference's schedule): a corpus of C chunks costs ~C/window +
+    log2(window) dispatches."""
+    out: List[Tuple[int, int]] = []
+    ci, w = 0, max(1, window)
+    while ci < n_chunks:
+        while w > 1 and ci + w > n_chunks:
+            w //= 2
+        out.append((ci, w))
+        ci += w
+    return out
 
 
 def staged_batches(store: TokenStore, schedule: Sequence[Tuple[int, int]], *,
                    device: torch.device, depth: int = 2, sharding=None
                    ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """Yield ``(tokens, mask)`` on ``device`` for each schedule entry, the
-    copies issued ``depth`` batches ahead of the consumer.
+    copies issued ``depth`` batches ahead of the consumer.  An entry
+    ``(ci, w)`` with ``w > 1`` is staged as one ``(w, chunk, L)`` copy of
+    chunks ``ci .. ci + w - 1``; ``w == 1`` stages the ``(chunk, L)`` chunk.
 
     On a CUDA device each batch is copied from pinned host memory with a
     ``non_blocking`` copy on a side stream; the consumer's stream (the
@@ -433,12 +450,13 @@ def staged_batches(store: TokenStore, schedule: Sequence[Tuple[int, int]], *,
     allocator from reusing the buffer before the consumer is done.
     ``depth=1`` stages each batch just before it is used.  With an
     mmap-backed store only the staged chunks are ever read into host
-    memory.
+    memory.  Host staging grows to ``O(depth x w x chunk x L)``.
 
     ``sharding`` (a :class:`~repro_torch.distributed.sharding.RowsSharding`)
     stages each batch's row blocks straight onto their shards' devices
     instead, and yields :class:`~repro_torch.distributed.sharding.
-    ShardedRows`: the layout the sharded stages consume."""
+    ShardedRows`: the layout the sharded stages consume, one chunk per
+    entry."""
     depth = max(1, depth)
     copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
 
@@ -456,7 +474,12 @@ def staged_batches(store: TokenStore, schedule: Sequence[Tuple[int, int]], *,
             done.record(stream)
         return t, done
 
-    def stage(ci: int):
+    def stage(ci: int, w: int):
+        if w > 1:
+            if sharding is not None:
+                raise ValueError("a sharded stage takes one chunk per step")
+            return (put(store.tokens[ci:ci + w], device),
+                    put(store.mask[ci:ci + w], device))
         if sharding is None:
             return put(store.tokens[ci], device), put(store.mask[ci], device)
         return ([put(b, d) for b, d in zip(sharding.split(store.tokens[ci]),
@@ -476,7 +499,7 @@ def staged_batches(store: TokenStore, schedule: Sequence[Tuple[int, int]], *,
     idx = 0
     while q or idx < len(schedule):
         while idx < len(schedule) and len(q) < depth:
-            q.append(stage(schedule[idx][0]))
+            q.append(stage(*schedule[idx]))
             idx += 1
         toks, mask = q.popleft()
         if sharding is None:
@@ -567,16 +590,24 @@ class StreamTopKStage(Stage):
     """Retrieval mode, plain PyTorch (the reference's ``xla`` stage): encode
     a chunk, score it, mask its padding rows, and take the top k of
     ``[carry || chunk]`` with a stable sort (the carry wins ties, then the
-    lower row)."""
+    lower row).
+
+    ``window`` > 1 lets the engine hand the stage a window of chunks per
+    dispatch (:meth:`step_window`), staged in one copy.  The window's
+    chunks are folded one at a time, in chunk order, through :meth:`step`:
+    encoding a whole window in one call would round f32 products at
+    another shape, and the results are bit-equal at every window."""
 
     name = "topk_torch"
 
     def __init__(self, encode_fn: Callable, *, k: int, query_ids: List[str],
-                 doc_ids: List[str], score_dtype: str = "f32"):
+                 doc_ids: List[str], window: int = 8,
+                 score_dtype: str = "f32"):
         self.encode_fn = encode_fn
         self.query_ids = query_ids
         self.doc_ids = doc_ids
         self.k = max(1, min(k, len(doc_ids))) if doc_ids else 0
+        self.window = max(1, window)
         self.score_dtype = validate_score_dtype(score_dtype)
 
     def init(self, q_emb):
@@ -596,6 +627,16 @@ class StreamTopKStage(Stage):
         return select_topk(torch.cat([run_s, s], dim=1),
                            torch.cat([run_i, gcol], dim=1), self.k)
 
+    def step_window(self, params, q_emb, carry, toks_w, mask_w, bases,
+                    n_valids):
+        """Fold a window of chunks, ``toks_w`` / ``mask_w`` ``(w, chunk,
+        L)``, one chunk at a time in chunk order."""
+        for toks, mask, base, n_valid in zip(toks_w, mask_w, bases,
+                                             n_valids):
+            carry = self.step(params, q_emb, carry, toks, mask, int(base),
+                              int(n_valid))
+        return carry
+
     def finalize(self, carry):
         run_s, run_i = carry[0].cpu().numpy(), carry[1].cpu().numpy()
         run, scores = {}, {}
@@ -610,9 +651,15 @@ class CudaStreamTopKStage(StreamTopKStage):
     ``pallas`` stage): the chunk's top-k and the carry merge run in the
     hand-written kernel (:func:`repro_torch.kernels.topk_mips.ops.
     topk_mips_chunk`).  On CPU tensors that wrapper runs its plain
-    version."""
+    version.  Every chunk goes through the kernel: ``window`` is 1, as the
+    reference builds its Pallas stage."""
 
     name = "topk_cuda"
+
+    def __init__(self, encode_fn: Callable, *, k: int, query_ids: List[str],
+                 doc_ids: List[str], score_dtype: str = "f32"):
+        super().__init__(encode_fn, k=k, query_ids=query_ids,
+                         doc_ids=doc_ids, window=1, score_dtype=score_dtype)
 
     def step(self, params, q_emb, carry, toks, mask, base, n_valid):
         emb = self.encode_fn(params, toks, mask)
@@ -776,8 +823,9 @@ class ShardedStreamTopKStage(StreamTopKStage):
     def __init__(self, encode_fn: Callable, mesh, *, k: int,
                  query_ids: List[str], doc_ids: List[str],
                  axis_names=None, score_dtype: str = "f32"):
+        # window=1: every sharded chunk goes through the mesh step below
         super().__init__(encode_fn, k=k, query_ids=query_ids,
-                         doc_ids=doc_ids, score_dtype=score_dtype)
+                         doc_ids=doc_ids, window=1, score_dtype=score_dtype)
         self.axis_names = tuple(axis_names or mesh.axis_names)
         self.input_sharding = rows_sharding(mesh, self.axis_names)
         self._sizes = [mesh.shape[a] for a in self.axis_names]
@@ -902,32 +950,33 @@ def _route_mode_rerank(*, impl: str, mesh=None, per_query=None) -> str:
 
 
 @register_stage("topk_torch")
-def _stage_topk_torch(encode_fn, *, k, query_ids, doc_ids, per_query=None,
-                      mesh=None, store=None, score_dtype="f32",
-                      rerank_compact=False) -> Stage:
+def _stage_topk_torch(encode_fn, *, k, query_ids, doc_ids, scan_window=8,
+                      per_query=None, mesh=None, store=None,
+                      score_dtype="f32", rerank_compact=False) -> Stage:
     return StreamTopKStage(encode_fn, k=k, query_ids=query_ids,
-                           doc_ids=doc_ids, score_dtype=score_dtype)
+                           doc_ids=doc_ids, window=scan_window,
+                           score_dtype=score_dtype)
 
 
 @register_stage("topk_cuda")
-def _stage_topk_cuda(encode_fn, *, k, query_ids, doc_ids, per_query=None,
-                     mesh=None, store=None, score_dtype="f32",
-                     rerank_compact=False) -> Stage:
+def _stage_topk_cuda(encode_fn, *, k, query_ids, doc_ids, scan_window=8,
+                     per_query=None, mesh=None, store=None,
+                     score_dtype="f32", rerank_compact=False) -> Stage:
     return CudaStreamTopKStage(encode_fn, k=k, query_ids=query_ids,
                                doc_ids=doc_ids, score_dtype=score_dtype)
 
 
 @register_stage("topk_sharded")
-def _stage_topk_sharded(encode_fn, *, k, query_ids, doc_ids, per_query=None,
-                        mesh=None, store=None, score_dtype="f32",
-                        rerank_compact=False) -> Stage:
+def _stage_topk_sharded(encode_fn, *, k, query_ids, doc_ids, scan_window=8,
+                        per_query=None, mesh=None, store=None,
+                        score_dtype="f32", rerank_compact=False) -> Stage:
     return ShardedStreamTopKStage(encode_fn, mesh, k=k, query_ids=query_ids,
                                   doc_ids=doc_ids, score_dtype=score_dtype)
 
 
 @register_stage("rerank")
-def _stage_rerank(encode_fn, *, k, query_ids, doc_ids, per_query=None,
-                  mesh=None, store=None, score_dtype="f32",
+def _stage_rerank(encode_fn, *, k, query_ids, doc_ids, scan_window=8,
+                  per_query=None, mesh=None, store=None, score_dtype="f32",
                   rerank_compact=True) -> Stage:
     return StreamRerankStage(encode_fn, k=max(k, 1000), query_ids=query_ids,
                              doc_ids=doc_ids, per_query=per_query,
@@ -937,8 +986,9 @@ def _stage_rerank(encode_fn, *, k, query_ids, doc_ids, per_query=None,
 
 @register_stage("rerank_sharded")
 def _stage_rerank_sharded(encode_fn, *, k, query_ids, doc_ids,
-                          per_query=None, mesh=None, store=None,
-                          score_dtype="f32", rerank_compact=True) -> Stage:
+                          scan_window=8, per_query=None, mesh=None,
+                          store=None, score_dtype="f32",
+                          rerank_compact=True) -> Stage:
     return ShardedStreamRerankStage(encode_fn, mesh, k=max(k, 1000),
                                     query_ids=query_ids, doc_ids=doc_ids,
                                     per_query=per_query, store=store,
@@ -949,7 +999,8 @@ def _stage_rerank_sharded(encode_fn, *, k, query_ids, doc_ids,
 def make_stage(encode_fn: Callable, *, mode: str, impl: str, k: int,
                query_ids: List[str], doc_ids: List[str],
                per_query: Optional[Dict[str, List[str]]] = None,
-               mesh=None, store: Optional[TokenStore] = None,
+               mesh=None, scan_window: int = 8,
+               store: Optional[TokenStore] = None,
                score_dtype: str = "f32",
                rerank_compact: bool = True) -> Stage:
     """Route (mode, impl, mesh) to a registered Stage: the ``mode`` route
@@ -958,14 +1009,17 @@ def make_stage(encode_fn: Callable, *, mode: str, impl: str, k: int,
     ``mesh`` (:class:`~repro_torch.distributed.compat.DeviceMesh`) routes
     ``impl="torch"`` retrieval to ``topk_sharded`` and the rerank modes to
     ``rerank_sharded``; ``impl="cuda"`` stays on the single-device kernel.
+    ``scan_window`` is the chunks per dispatch of the ``topk_torch`` stage;
+    the other stages take one chunk per step.
     ``store``, the corpus TokenStore, lets the rerank stages skip
     candidate-free chunks (and, with ``rerank_compact``, pack sparse
     candidate rows).  Unknown names raise listing the registered
     alternatives."""
     name = MODES.get(mode)(impl=impl, mesh=mesh, per_query=per_query)
     return STAGES.get(name)(encode_fn, k=k, query_ids=query_ids,
-                            doc_ids=doc_ids, per_query=per_query, mesh=mesh,
-                            store=store, score_dtype=score_dtype,
+                            doc_ids=doc_ids, scan_window=scan_window,
+                            per_query=per_query, mesh=mesh, store=store,
+                            score_dtype=score_dtype,
                             rerank_compact=rerank_compact)
 
 
@@ -1035,7 +1089,9 @@ class StreamingEngine:
         # a compacting rerank stage streams its own packed store
         store = getattr(self.stage, "store_override", None) or self.doc_store
         carry = self.stage.init(q_emb)
-        schedule = plan_schedule(store.n_chunks)
+        window = getattr(self.stage, "window", 1)
+        use_window = window > 1 and hasattr(self.stage, "step_window")
+        schedule = plan_schedule(store.n_chunks, window if use_window else 1)
         # a rerank stage drops chunks with no candidate row before staging
         wants = getattr(self.stage, "wants_chunk", None)
         if wants is not None:
@@ -1051,7 +1107,7 @@ class StreamingEngine:
         t_wait = 0.0
         step_hist = tel.metrics.histogram("engine.chunk_step_s") \
             if tel is not None else None
-        for ci, _ in schedule:
+        for ci, w in schedule:
             if tel is None:
                 toks, mask = next(batches)
             else:
@@ -1059,8 +1115,15 @@ class StreamingEngine:
                 toks, mask = next(batches)
                 t_wait += time.monotonic() - m0
                 m1 = time.monotonic()
-            carry = self.stage.step(params, q_emb, carry, toks, mask,
-                                    store.chunk * ci, store.rows_valid(ci))
+            if w > 1:
+                bases = [store.chunk * j for j in range(ci, ci + w)]
+                n_valids = [store.rows_valid(j) for j in range(ci, ci + w)]
+                carry = self.stage.step_window(params, q_emb, carry, toks,
+                                               mask, bases, n_valids)
+            else:
+                carry = self.stage.step(params, q_emb, carry, toks, mask,
+                                        store.chunk * ci,
+                                        store.rows_valid(ci))
             if tel is not None:
                 step_hist.observe(time.monotonic() - m1)
         self._synchronize(device)
@@ -1237,8 +1300,8 @@ def make_streaming_engine(spec, store: ValidationStore, vcfg):
     stage = make_stage(spec.encode_passage, mode=vcfg.mode, impl=vcfg.impl,
                        k=vcfg.k, query_ids=store.query_ids,
                        doc_ids=store.doc_ids, per_query=store.per_query,
-                       mesh=mesh, store=doc_store,
-                       score_dtype=vcfg.score_dtype,
+                       mesh=mesh, scan_window=vcfg.scan_window,
+                       store=doc_store, score_dtype=vcfg.score_dtype,
                        rerank_compact=vcfg.rerank_compact)
     return StreamingEngine(spec, doc_store, query_store, stage,
                            staging=vcfg.staging,

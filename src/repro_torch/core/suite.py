@@ -43,6 +43,7 @@ class ValidationConfig:
     mesh: Any = None                 # optional DeviceMesh: sharded path
     engine: str = "streaming"        # streaming | materialized
     chunk_size: Optional[int] = None  # streaming chunk rows; None -> batch_size
+    scan_window: int = 8             # chunks per dispatch (the torch stage)
     staging: str = "double_buffered"  # double_buffered | sync host->device
     staging_depth: int = 2           # batches staged ahead of compute
     token_backing: str = "memory"    # memory | mmap (out-of-core TokenStore)

@@ -56,8 +56,10 @@ the combine back to ``(S, D)`` gathers each token's K slots and sums them in
 a fixed order, which is deterministic on a card (the reference
 scatter-adds slots in slot order: the sums agree to rounding).  Routing
 ties: ``jax.lax.top_k`` puts the lower expert first among equal
-probabilities and ``torch.topk`` on a card does not promise that, so equal
-router probabilities may route differently; random routers have none.
+probabilities, and ``torch.topk`` on a card promises no order for ties, so
+the port selects by a stable descending sort of the probabilities cut to K
+(as ``kernels.topk_mips.ref.select_topk`` does): equal probabilities route
+to the lower expert first on every device.
 
 KV caches are updated in place (the reference returns new arrays): the
 caches that ``prefill`` and ``decode_step`` return are the tensors they were
@@ -559,6 +561,15 @@ def _expert_swiglu(p, xt: torch.Tensor, cd) -> torch.Tensor:
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
+def _top_experts(probs: torch.Tensor, K: int):
+    """The K largest router probabilities of each token and their experts,
+    descending, the lower expert first on equal probabilities (the order
+    of ``jax.lax.top_k``): a stable sort cut to K."""
+    expert_idx = torch.sort(probs, dim=-1, descending=True,
+                            stable=True).indices[..., :K]
+    return torch.gather(probs, -1, expert_idx), expert_idx
+
+
 def _moe_block(p, x, cfg: TransformerConfig):
     """Token-choice top-k MoE with sort-based dispatch; each batch row is a
     routing group.  x (B, S, D) -> (out (B, S, D), aux loss).
@@ -573,7 +584,7 @@ def _moe_block(p, x, cfg: TransformerConfig):
     cd = cfg.compute_dtype
     C = moe_capacity(cfg, S)
     probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
-    gates, expert_idx = torch.topk(probs, K, dim=-1)
+    gates, expert_idx = _top_experts(probs, K)
     gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
     me = probs.mean(dim=(0, 1))
     fe = torch.nn.functional.one_hot(expert_idx[..., 0], E).float() \

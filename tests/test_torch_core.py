@@ -113,6 +113,8 @@ def test_token_store_and_schedule_match_jax():
         [ref.rows_valid(i) for i in range(ref.n_chunks)]
     for n in (13, 5, 0):
         assert engine.plan_schedule(n) == jengine.plan_schedule(n, 1)
+        for w in (1, 2, 3, 4, 8, 16):
+            assert engine.plan_schedule(n, w) == jengine.plan_schedule(n, w)
     staged = list(engine.staged_batches(
         mine, engine.plan_schedule(mine.n_chunks),
         device=torch.device("cpu"), depth=3))

@@ -1,5 +1,7 @@
-"""The port stands alone: nothing under src/repro_torch/ and not chip_smoke.py
-imports jax, ml_dtypes or the JAX package ``repro``.
+"""The port stands alone: nothing under src/repro_torch/, not chip_smoke.py
+and not the examples' torch twins (examples/*_torch.py) imports jax,
+ml_dtypes or the JAX package ``repro``; the twins import no ``benchmarks``
+module either (those import jax).
 
 A static scan of every import line, and an import of every module in a
 subprocess where those packages cannot be imported (as on the GPU machine,
@@ -15,13 +17,22 @@ import pytest
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "src", "repro_torch")
+EXAMPLES = os.path.join(ROOT, "examples")
 # "repro" followed by anything but "_" (so repro_torch is not a match)
 FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|jaxlib|ml_dtypes|repro)(?![\w])")
 
 
+BENCHMARKS = re.compile(r"^\s*(?:import|from)\s+benchmarks(?![\w])")
+
+
+def _twins():
+    return sorted(os.path.join(EXAMPLES, f) for f in os.listdir(EXAMPLES)
+                  if f.endswith("_torch.py"))
+
+
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")] + _twins()
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -30,7 +41,7 @@ def _sources():
 def _modules():
     mods = []
     for path in _sources():
-        if path.endswith("chip_smoke.py"):
+        if path.endswith("chip_smoke.py") or path in _twins():
             continue
         rel = os.path.relpath(path, os.path.join(ROOT, "src"))[:-3]
         mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
@@ -50,23 +61,34 @@ def test_pattern_tells_repro_from_repro_torch():
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_forbidden_import_lines(path):
     with open(path) as f:
-        bad = [line.rstrip() for line in f if FORBIDDEN.match(line)]
+        bad = [line.rstrip() for line in f if FORBIDDEN.match(line)
+               or (path in _twins() and BENCHMARKS.match(line))]
     assert not bad, bad
+
+
+def test_every_example_has_a_twin():
+    originals = sorted(f[:-3] for f in os.listdir(EXAMPLES)
+                       if f.endswith(".py") and not f.endswith("_torch.py"))
+    assert len(originals) == 11
+    assert [os.path.basename(p)[:-9] for p in _twins()] == originals
 
 
 def test_every_module_imports_without_jax_or_repro():
     script = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes',"
-        " 'repro'):\n"
+        " 'repro', 'benchmarks'):\n"
         "            raise ImportError(name + ' is blocked')\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         f"sys.path.insert(0, {os.path.abspath(ROOT)!r})\n"
         "importlib.import_module('chip_smoke')\n"
+        f"for path in {_twins()!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", script], env=env,

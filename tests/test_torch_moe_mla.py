@@ -8,9 +8,10 @@ numpy) and the same seeded numpy inputs go through both.  The dispatch is
 compared slot by slot and must be equal; at compute f32 outputs, logits and
 caches agree within atol 2e-5 and losses within 1e-5 (f32 sums in another
 order: the port's combine sums each token's K slots where the reference
-scatter-adds slots).  Routers are drawn at random, so no two router
-probabilities of a token tie (``torch.topk`` does not promise
-``lax.top_k``'s lower-index-first order on ties).
+scatter-adds slots).  Routers are mostly drawn at random, so no two router
+probabilities of a token tie; the tie cases (a zero router, duplicated
+router columns, tied probabilities fed to the selection) pin the order of
+``lax.top_k``: the lower expert first.
 """
 
 import dataclasses
@@ -186,6 +187,80 @@ def test_moe_block_deterministic_algorithms(arch):
     finally:
         torch.use_deterministic_algorithms(was)
     assert torch.equal(a, b)
+
+
+def _tied_moe_params(arch: str, case: str, E: int):
+    """One MoE layer's params whose router ties: ``zero`` (every
+    probability 1/E) or ``dup`` (the first half of the experts in pairs of
+    equal router columns, the rest distinct).  Router and inputs are
+    multiples of 1/8 and 1/4 below 4, so every logit is exact and equal
+    columns give equal probabilities in either framework.  ``E`` other than
+    the smoke config's draws the experts too, at the smoke widths."""
+    jc, _ = _configs(arch, moe_num_experts=E)
+    p = dict(_layer0(_tree(arch)["moe_layers"]["moe"]))
+    rng = np.random.default_rng(E + len(case))
+    D, F = jc.d_model, jc.moe_d_ff
+    if E != p["router"].shape[1]:
+        for key, shape in (("w1", (E, D, F)), ("w3", (E, D, F)),
+                           ("w2", (E, F, D))):
+            p[key] = (0.05 * rng.standard_normal(shape)).astype(np.float32)
+    if case == "zero":
+        router = np.zeros((D, E), np.float32)
+    else:
+        router = rng.integers(-3, 4, size=(D, E)).astype(np.float32) / 8
+        router[:, 1:E // 2:2] = router[:, 0:E // 2:2]
+    p["router"] = router
+    return p
+
+
+def _tied_inputs(D: int, B: int = 2, S: int = 40):
+    rng = np.random.default_rng(D)
+    return (rng.integers(-3, 4, size=(B, S, D)) / 4).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["zero", "dup"])
+@pytest.mark.parametrize("arch,E", [("arctic-480b", 8), ("arctic-480b", 128),
+                                    ("deepseek-v2-lite-16b", 8)])
+def test_moe_block_tied_router_matches_reference(arch, E, case):
+    """Equal router probabilities route as the reference routes them (the
+    lower expert first), so capacity drops, outputs and the aux loss
+    agree."""
+    jc, tc = _configs(arch, moe_num_experts=E)
+    p = _tied_moe_params(arch, case, E)
+    x = _tied_inputs(jc.d_model)
+    tp = nn.to_torch_tree(p)
+    probs = torch.softmax(torch.from_numpy(x) @ tp["router"], dim=-1)
+    _, idx = tfm._top_experts(probs, tc.moe_top_k)
+    ties = (torch.gather(probs, -1, idx[..., 1:])
+            == torch.gather(probs, -1, idx[..., :1])).any(-1)
+    assert bool(ties.any())                  # the top K do tie somewhere
+    if case == "zero":
+        assert (idx == torch.arange(tc.moe_top_k)).all()
+    else:
+        assert not bool(ties.all())           # ... and not everywhere
+    jprobs = jax.nn.softmax(jnp.asarray(x) @ jnp.asarray(p["router"]), -1)
+    np.testing.assert_array_equal(
+        idx.numpy(), np.asarray(jax.lax.top_k(jprobs, jc.moe_top_k)[1]))
+    want, waux = jtfm._moe_block(p, jnp.asarray(x), jc)
+    got, gaux = tfm._moe_block(tp, torch.from_numpy(x), tc)
+    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(float(gaux), float(waux), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("K", [1, 2, 6])
+@pytest.mark.parametrize("E", [8, 128])
+def test_top_experts_lower_expert_first_on_ties(E, K):
+    """The selection itself on probabilities with many exact ties (a few
+    distinct values per token): the order of ``lax.top_k``."""
+    rng = np.random.default_rng(E * 10 + K)
+    probs = (rng.integers(0, 4, size=(3, 50, E)) / 4).astype(np.float32)
+    probs[0, 0] = 0.25                        # a token where all tie
+    gates, idx = tfm._top_experts(torch.from_numpy(probs), K)
+    wg, wi = jax.lax.top_k(jnp.asarray(probs), K)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gates.numpy(), np.asarray(wg))
+    assert idx[0, 0].tolist() == list(range(K))
+    assert idx.dtype == torch.int64
 
 
 def test_expert_blocks_cast_a_few_experts_at_a_time(monkeypatch):

@@ -614,22 +614,34 @@ def test_serve_entry_points_raise_without_a_card(world, tmp_path,
         main(argv)
 
 
-def test_serve_flags_are_ported():
-    """The six ``--serve*`` flags left the not-yet-ported table;
-    ``--scan_window`` still raises."""
+def test_serve_flags_are_ported(world, tmp_path):
+    """The six ``--serve*`` flags parse with the reference's defaults, and
+    the not-yet-ported table is gone: ``--scan_window 4`` parses and
+    validates to the ledger row of the default window."""
     from repro_torch.core import cli
-    assert not {"serve", "serve_k", "serve_batch", "serve_flush_ms",
-                "serve_pending", "serve_events"} & set(cli._NOT_PORTED)
+    assert not hasattr(cli, "_NOT_PORTED")
     args = cli._parser().parse_args(
         ["--query_file", "q", "--candidate_dir", "c", "--ckpts_dir", "k",
          "--qrel_file", "r"])
     assert (args.serve, args.serve_k, args.serve_batch, args.serve_flush_ms,
-            args.serve_pending, args.serve_events) == \
-        (False, 10, 8, 4.0, 256, None)
-    with pytest.raises(NotImplementedError, match="--scan_window"):
-        cli.main(["--query_file", "q", "--candidate_dir", "c",
-                  "--ckpts_dir", "k", "--qrel_file", "r",
-                  "--scan_window", "8"])
+            args.serve_pending, args.serve_events, args.scan_window) == \
+        (False, 10, 8, 4.0, 256, None, 8)
+    cdir, qfile, qrels = _write_files(world, tmp_path)
+    rows = {}
+    for window in ("8", "4"):
+        out = tmp_path / f"w{window}"
+        assert cli.main(["--query_file", qfile, "--candidate_dir", cdir,
+                         "--ckpts_dir", world["ckdir"], "--qrel_file", qrels,
+                         "--output_dir", str(out), "--device", "cpu",
+                         "--batch_size", "32", "--scan_window", window,
+                         "--metrics", "MRR@10", "Recall@20", "--encoder",
+                         "tests.test_torch_serve:toy_encoder_from_cli"]) == 0
+        rows[window] = [json.loads(line) for line in
+                        open(out / "asyncval_ledger.jsonl")]
+    assert [r["step"] for r in rows["4"]] == world["steps"]
+    for got, want in zip(rows["4"], rows["8"]):
+        assert got["metrics"] == want["metrics"]
+        assert got["subset_size"] == want["subset_size"]
 
 
 def test_port_restores_the_reference_checkpoints(world):

@@ -121,18 +121,28 @@ def test_port_cli_matches_jax_cli(filespace, tmp_path, score_dtype):
                     (impl, name)
 
 
-def test_unported_flags_raise(filespace, tmp_path):
+def test_scan_window_flag_is_ported(filespace, tmp_path):
+    # every flag of the reference's CLI is ported: the control plane's, the
+    # hand-off's, serving's and the fleet's (tests/test_torch_control_
+    # integration.py, tests/test_torch_serve.py, tests/test_torch_fleet.py)
+    # and --scan_window, whose rows equal the default window's
+    default = tmp_path / "default"
+    assert torch_main(_args(filespace, default, "torch_encoder")
+                      + ["--device", "cpu"]) == 0
     base = _args(filespace, tmp_path, "torch_encoder") + ["--device", "cpu"]
-    # the control plane's, the hand-off's, serving's and the fleet's flags
-    # are ported (tests/test_torch_control_integration.py,
-    # tests/test_torch_serve.py, tests/test_torch_fleet.py); --scan_window
-    # not
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_main(base + ["--scan_window", "4"])
-    assert not (tmp_path / "asyncval_ledger.jsonl").exists()
-    assert torch_main(base + ["--worker", "--worker_id", "w0",
-                              "--lease_ttl", "4"]) == 0
-    rows = [r for r in _ledger(tmp_path) if "kind" not in r]
+    assert torch_main(base + ["--scan_window", "4"]) == 0
+    want = _ledger(default)
+    got = _ledger(tmp_path)
+    assert [r["step"] for r in got] == [r["step"] for r in want] == \
+        list(STEPS)
+    for g, w in zip(got, want):
+        assert g["metrics"] == w["metrics"]
+        assert g["subset_size"] == w["subset_size"]
+    fleet = tmp_path / "fleet"
+    assert torch_main(_args(filespace, fleet, "torch_encoder")
+                      + ["--device", "cpu", "--worker", "--worker_id", "w0",
+                         "--lease_ttl", "4"]) == 0
+    rows = [r for r in _ledger(fleet) if "kind" not in r]
     assert sorted(r["step"] for r in rows) == list(STEPS)
     assert {r["worker_id"] for r in rows} == {"w0"}
 
