@@ -26,9 +26,14 @@ The port of ``repro/core/engine.py``:
 
 With a :class:`repro_torch.obs.Telemetry` on the suite's config the
 engines record the reference's ``encoded`` / ``staged`` / ``store_build``
-spans and the ``engine.*`` histograms, read at the clock points of the
-ledger ``timings`` (after the same stream synchronisations); without one
-they take no extra clock reads.
+spans and the ``engine.staging_wait_s`` histogram, read at the clock
+points of the ledger ``timings`` (after the same stream
+synchronisations); the streaming engine adds an ``uploaded`` span, a
+``staged`` span per staged batch and a ``chunk`` span per chunk with the
+device intervals of its trunk and fold, on the tracer's clock through an
+anchor event recorded after the query encode's synchronize, and read
+after the loop's.  Without one they take no extra clock reads and make
+no CUDA event.
 
 With a :class:`~repro_torch.distributed.compat.DeviceMesh` on the config
 (``ValidationConfig.mesh``) the engine shards: each staged chunk's rows are
@@ -76,6 +81,7 @@ from repro_torch.distributed.sharding import (ShardedRows,
 from repro_torch.kernels.topk_mips import ops as mips_ops
 from repro_torch.kernels.topk_mips.ref import select_topk
 from repro_torch.models.nn import to_torch_tree
+from repro_torch.obs.device import DeviceClock
 
 Run = Dict[str, List[str]]
 Scores = Dict[str, List[float]]
@@ -572,9 +578,14 @@ class Stage:
 
     ``init(q_emb) -> carry``; ``step(params, q_emb, carry, toks, mask, base,
     n_valid) -> carry``; ``finalize(carry) -> (run, run_scores)``.
+
+    A stage with ``takes_mark`` takes ``mark=`` in ``step`` (and
+    ``step_window``): a hook it calls after each chunk's trunk and after
+    its fold, where the engine's telemetry marks the device's progress.
     """
 
     name = "stage"
+    takes_mark = False
 
     def init(self, q_emb: torch.Tensor):
         raise NotImplementedError
@@ -599,6 +610,7 @@ class StreamTopKStage(Stage):
     another shape, and the results are bit-equal at every window."""
 
     name = "topk_torch"
+    takes_mark = True
 
     def __init__(self, encode_fn: Callable, *, k: int, query_ids: List[str],
                  doc_ids: List[str], window: int = 8,
@@ -616,25 +628,31 @@ class StreamTopKStage(Stage):
                 torch.zeros((Q, self.k), dtype=torch.int32,
                             device=q_emb.device))
 
-    def step(self, params, q_emb, carry, toks, mask, base, n_valid):
+    def step(self, params, q_emb, carry, toks, mask, base, n_valid,
+             mark=None):
         run_s, run_i = carry
         emb = self.encode_fn(params, toks, mask)               # (chunk, D)
+        if mark is not None:
+            mark()
         s = chunk_scores(q_emb, emb, self.score_dtype)         # (Q, chunk)
         col = torch.arange(toks.shape[0], dtype=torch.int32,
                            device=s.device)
         s = s.masked_fill((col >= n_valid)[None, :], float("-inf"))
         gcol = (col + base).expand(s.shape[0], -1)
-        return select_topk(torch.cat([run_s, s], dim=1),
-                           torch.cat([run_i, gcol], dim=1), self.k)
+        carry = select_topk(torch.cat([run_s, s], dim=1),
+                            torch.cat([run_i, gcol], dim=1), self.k)
+        if mark is not None:
+            mark()
+        return carry
 
     def step_window(self, params, q_emb, carry, toks_w, mask_w, bases,
-                    n_valids):
+                    n_valids, mark=None):
         """Fold a window of chunks, ``toks_w`` / ``mask_w`` ``(w, chunk,
         L)``, one chunk at a time in chunk order."""
         for toks, mask, base, n_valid in zip(toks_w, mask_w, bases,
                                              n_valids):
             carry = self.step(params, q_emb, carry, toks, mask, int(base),
-                              int(n_valid))
+                              int(n_valid), mark)
         return carry
 
     def finalize(self, carry):
@@ -661,12 +679,18 @@ class CudaStreamTopKStage(StreamTopKStage):
         super().__init__(encode_fn, k=k, query_ids=query_ids,
                          doc_ids=doc_ids, window=1, score_dtype=score_dtype)
 
-    def step(self, params, q_emb, carry, toks, mask, base, n_valid):
+    def step(self, params, q_emb, carry, toks, mask, base, n_valid,
+             mark=None):
         emb = self.encode_fn(params, toks, mask)
+        if mark is not None:
+            mark()
         run_s, run_i = carry
-        return mips_ops.topk_mips_chunk(q_emb, emb, run_s, run_i, base=base,
-                                        n_valid=n_valid,
-                                        score_dtype=self.score_dtype)
+        carry = mips_ops.topk_mips_chunk(q_emb, emb, run_s, run_i, base=base,
+                                         n_valid=n_valid,
+                                         score_dtype=self.score_dtype)
+        if mark is not None:
+            mark()
+        return carry
 
 
 class StreamRerankStage(Stage):
@@ -819,6 +843,7 @@ class ShardedStreamTopKStage(StreamTopKStage):
     scores equal its own: bit for bit on a one-device mesh."""
 
     name = "topk_sharded"
+    takes_mark = False         # a chunk's trunk and fold interleave by device
 
     def __init__(self, encode_fn: Callable, mesh, *, k: int,
                  query_ids: List[str], doc_ids: List[str],
@@ -1074,7 +1099,12 @@ class StreamingEngine:
     def run(self, params) -> Tuple[Run, Scores, Dict[str, float]]:
         tel = self.telemetry
         device = self.spec.device
-        params = to_torch_tree(params, device)
+        if tel is None:
+            params = to_torch_tree(params, device)
+        else:
+            m0 = time.monotonic()
+            params = to_torch_tree(params, device)
+            tel.record("uploaded", m0, time.monotonic() - m0)
         t0 = time.time()
         m0 = time.monotonic() if tel is not None else 0.0
         q_emb = encode_store(self.spec.encode_query, params, self.query_store,
@@ -1082,10 +1112,15 @@ class StreamingEngine:
                              axis_names=self.query_axis_names)
         self._synchronize(device)
         t_query = time.time() - t0
+        clock = None
         if tel is not None:
             tel.record("encoded", m0, t_query, role="query")
+            # the stream is idle here: the anchor's event runs at once
+            clock = DeviceClock(device)
+            clock.anchor()
 
         t0 = time.time()
+        m_stream = time.monotonic() if tel is not None else 0.0
         # a compacting rerank stage streams its own packed store
         store = getattr(self.stage, "store_override", None) or self.doc_store
         carry = self.stage.init(q_emb)
@@ -1100,44 +1135,43 @@ class StreamingEngine:
             store, schedule, device=device,
             depth=1 if self.staging == "sync" else self.staging_depth,
             sharding=getattr(self.stage, "input_sharding", None))
-        # explicit next() so telemetry can time the staging (host time to
-        # take the next staged batch) apart from the step's dispatch; on a
-        # card both are host times, the device work is in t_stream
-        m_stream = time.monotonic() if tel is not None else 0.0
-        t_wait = 0.0
-        step_hist = tel.metrics.histogram("engine.chunk_step_s") \
-            if tel is not None else None
+        # with telemetry: per schedule entry, the host interval of the wait
+        # for its staged batch, and (host reading, device mark) pairs at its
+        # start and, through the stage's hook, after each chunk's trunk and
+        # fold (else at its end); read once the stream is synchronized below
+        traced: List[tuple] = []
+        split = tel is not None and getattr(self.stage, "takes_mark", False)
+        kw: Dict[str, Callable] = {}
+
+        def mark_now(marks):
+            marks.append((time.monotonic(), clock.mark()))
+
         for ci, w in schedule:
-            if tel is None:
-                toks, mask = next(batches)
-            else:
-                m0 = time.monotonic()
-                toks, mask = next(batches)
-                t_wait += time.monotonic() - m0
-                m1 = time.monotonic()
+            if tel is not None:
+                h0 = time.monotonic()
+            toks, mask = next(batches)
+            if tel is not None:
+                h1 = time.monotonic()
+                marks = [(h1, clock.mark())]
+                if split:
+                    kw["mark"] = lambda marks=marks: mark_now(marks)
             if w > 1:
                 bases = [store.chunk * j for j in range(ci, ci + w)]
                 n_valids = [store.rows_valid(j) for j in range(ci, ci + w)]
                 carry = self.stage.step_window(params, q_emb, carry, toks,
-                                               mask, bases, n_valids)
+                                               mask, bases, n_valids, **kw)
             else:
                 carry = self.stage.step(params, q_emb, carry, toks, mask,
                                         store.chunk * ci,
-                                        store.rows_valid(ci))
+                                        store.rows_valid(ci), **kw)
             if tel is not None:
-                step_hist.observe(time.monotonic() - m1)
+                if not split:
+                    mark_now(marks)
+                traced.append((ci, w, h0, h1, marks))
         self._synchronize(device)
         t_stream = time.time() - t0
         if tel is not None:
-            stream_total = max(time.monotonic() - m_stream, 1e-12)
-            idle_ratio = t_wait / stream_total
-            # one aggregate span per run: its duration is the summed waits,
-            # not a contiguous interval
-            tel.record("staged", m_stream, t_wait, n_batches=len(schedule),
-                       staging=self.staging, idle_ratio=idle_ratio)
-            tel.metrics.histogram("engine.staging_wait_s").observe(t_wait)
-            tel.metrics.histogram("engine.staging_idle_ratio").observe(
-                idle_ratio)
+            self._record_chunks(tel, clock, traced, split, m_stream, t_stream)
 
         t0 = time.time()
         run, scores = self.stage.finalize(carry)
@@ -1148,6 +1182,34 @@ class StreamingEngine:
                    "retrieve_s": t_final,
                    "total_s": t_query + t_stream + t_final}
         return run, scores, timings
+
+    def _record_chunks(self, tel, clock: DeviceClock, traced, split: bool,
+                       m_stream: float, t_stream: float) -> None:
+        """The spans of one encode-and-fold loop, its device work complete:
+        the loop (``encoded``, ``role="corpus"``, the interval of
+        ``encode_corpus_s``), a ``staged`` span per schedule entry and a
+        ``chunk`` span per chunk (its host interval from its first mark to
+        its last), whose ``dev_t0`` / ``dev_s`` is the chunk's device
+        interval and, where the stage marks its fold, ``trunk_s`` /
+        ``fold_s`` its two parts."""
+        tel.record("encoded", m_stream, t_stream, role="corpus",
+                   n_chunks=sum(w for _, w, *_ in traced))
+        wait = 0.0
+        for ci, w, h0, h1, marks in traced:
+            wait += h1 - h0
+            tel.record("staged", h0, h1 - h0, chunk=ci, n=w,
+                       staging=self.staging)
+            host = [h for h, _ in marks]
+            dev = [clock.resolve(m) for _, m in marks]
+            for j in range(w):
+                # a chunk's marks: its start, then after its trunk and fold
+                a, c = (2 * j, 2 * j + 2) if split else (0, -1)
+                parts = {"trunk_s": dev[a + 1] - dev[a],
+                         "fold_s": dev[c] - dev[a + 1]} if split else {}
+                tel.record("chunk", host[a], host[c] - host[a],
+                           chunk=ci + j, dev_t0=dev[a],
+                           dev_s=dev[c] - dev[a], **parts)
+        tel.metrics.histogram("engine.staging_wait_s").observe(wait)
 
 
 class MaterializedEngine:

@@ -279,8 +279,16 @@ class ValidatorWorker:
                 self._params = self.params_extractor(snap.state())
                 self._params_handoff = "snapshot"
             else:
-                state, _ = ckpt.restore(self.ckpt_root, step,
-                                        template=self.template)
+                tel = self.telemetry
+                if tel is None:
+                    state, _ = ckpt.restore(self.ckpt_root, step,
+                                            template=self.template)
+                else:
+                    m0 = time.monotonic()
+                    state, _ = ckpt.restore(self.ckpt_root, step,
+                                            template=self.template)
+                    tel.record("restored", m0, time.monotonic() - m0,
+                               step=step)
                 self._params = self.params_extractor(state)
                 self._params_handoff = ""
             self._params_step = step

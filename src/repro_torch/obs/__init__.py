@@ -29,12 +29,15 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from repro_torch.obs.device import DeviceClock
 from repro_torch.obs.metrics import (Counter, Ewma, Gauge, Histogram,
                                MetricsRegistry)
-from repro_torch.obs.trace import LIFECYCLE_STAGES, SpanTracer, read_trace
+from repro_torch.obs.trace import (LIFECYCLE_STAGES, SpanTracer, read_trace,
+                                   to_time_ns)
 
 __all__ = ["Telemetry", "MetricsRegistry", "SpanTracer", "read_trace",
-           "LIFECYCLE_STAGES", "Counter", "Gauge", "Ewma", "Histogram"]
+           "to_time_ns", "DeviceClock", "LIFECYCLE_STAGES", "Counter",
+           "Gauge", "Ewma", "Histogram"]
 
 _NULL_CM = contextlib.nullcontext()
 
@@ -78,10 +81,15 @@ class Telemetry:
         if tracer is not None:
             tracer.event(name, **attrs)
 
-    def record(self, name: str, t0: float, dur: float, **attrs: Any) -> None:
+    def record(self, name: str, t0: float, dur: float, **attrs: Any
+               ) -> Optional[int]:
+        """A span from explicit monotonic ``t0``/``dur``; its id, or None
+        without a tracer.  ``parent=<id>`` (``None``: top level) nests it
+        under a span other than the one open on this thread."""
         tracer = self.tracer
         if tracer is not None:
-            tracer.record(name, t0, dur, **attrs)
+            return tracer.record(name, t0, dur, **attrs)
+        return None
 
     def flush(self) -> None:
         tracer = self.tracer

@@ -7,10 +7,17 @@ record schema) into a single Chrome trace-event JSON file that
 fleet timeline: one track per (process, thread), spans as slices, events
 as instants.  Because span timestamps are CLOCK_MONOTONIC and that clock
 is system-wide on Linux, traces from different worker processes on one
-host line up without skew correction.
+host line up without skew correction.  A span's device interval
+(``dev_t0`` / ``dev_s``, on the same clock through the anchor event its
+site records after a synchronize; see :mod:`repro_torch.obs.trace`) is
+drawn on a ``device`` track of its process: a chunk's as its ``trunk``
+and ``fold``, any other under the span's name.  Spans are emitted off a
+query's path, after its answers are released, so a timeline shows a
+served batch once it is done.
 
 ``stage_summary`` / ``breakdown_table`` turn the same records into
-per-stage latency tables.  Summaries report both
+per-stage latency tables; ``clock`` records are not stages and are
+skipped.  Summaries report both
 *inclusive* time (span duration) and *self* time (duration minus direct
 children), so a parent ``scored`` span does not double-count its nested
 ``staged``/``encoded`` children in a breakdown.
@@ -31,6 +38,8 @@ __all__ = ["load_traces", "to_chrome", "write_chrome", "stage_summary",
            "breakdown_table", "main"]
 
 _STAGE_ORDER = {name: i for i, name in enumerate(LIFECYCLE_STAGES)}
+#: the thread id of each process's device track
+DEVICE_TID = 2 ** 31 - 1
 
 
 def load_traces(paths: Sequence[str]) -> List[Dict[str, Any]]:
@@ -60,6 +69,7 @@ def to_chrome(records: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
                  "pid", "tid", "process", "_file")
     events: List[Dict[str, Any]] = []
     named: Dict[int, str] = {}
+    device_tracks: set = set()
     for rec in sorted(records, key=_sort_key):
         pid = int(rec.get("pid", 0))
         tid = int(rec.get("tid", 0)) % 2 ** 31  # chrome wants small-ish ints
@@ -79,12 +89,34 @@ def to_chrome(records: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
                 "ts": float(rec.get("t0", 0.0)) * 1e6,
                 "dur": max(1.0, float(rec.get("dur", 0.0)) * 1e6),
                 "pid": pid, "tid": tid, "args": args})
+            if rec.get("dev_t0") is not None:
+                if pid not in device_tracks:
+                    device_tracks.add(pid)
+                    events.append({"ph": "M", "name": "thread_name",
+                                   "pid": pid, "tid": DEVICE_TID,
+                                   "args": {"name": "device"}})
+                events.extend(_device_slices(rec, pid, args))
         elif rec.get("kind") == "event":
             events.append({
                 "ph": "i", "s": "t", "name": str(rec.get("name")),
                 "cat": "lifecycle", "ts": float(rec.get("t", 0.0)) * 1e6,
                 "pid": pid, "tid": tid, "args": args})
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def _device_slices(rec: Dict[str, Any], pid: int,
+                   args: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """A span's device interval as slices of its process's device track:
+    ``trunk`` and ``fold`` where the span splits it, else one slice."""
+    t0 = float(rec["dev_t0"])
+    if rec.get("trunk_s") is not None and rec.get("fold_s") is not None:
+        parts = [("trunk", t0, float(rec["trunk_s"])),
+                 ("fold", t0 + float(rec["trunk_s"]), float(rec["fold_s"]))]
+    else:
+        parts = [(str(rec.get("name")), t0, float(rec.get("dev_s", 0.0)))]
+    return [{"ph": "X", "name": name, "cat": "device", "ts": ts * 1e6,
+             "dur": max(1.0, dur * 1e6), "pid": pid, "tid": DEVICE_TID,
+             "args": args} for name, ts, dur in parts]
 
 
 def write_chrome(paths: Sequence[str], out: str) -> Dict[str, Any]:
@@ -113,7 +145,7 @@ def stage_summary(records: Iterable[Dict[str, Any]]) -> Dict[str, Dict[str, Any]
     file, ``parent`` pointing at the span) — the additive view for
     breakdown tables.  Events contribute ``count`` only.
     """
-    recs = list(records)
+    recs = [r for r in records if r.get("kind") != "clock"]
     child_time: Dict[Any, float] = {}
     for rec in recs:
         if rec.get("kind") == "span" and rec.get("parent") is not None:

@@ -39,7 +39,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,13 +113,17 @@ class ServingIndex:
             else [self.emb]
         return all(bool(torch.isfinite(t).all()) for t in shards)
 
-    def topk(self, q_emb: torch.Tensor, *, k: int):
+    def topk(self, q_emb: torch.Tensor, *, k: int,
+             mark: Optional[Callable[[str], None]] = None):
         """Raw top-k over the resident matrix, the validator's
         ``retrieve_run`` dispatch plus the pad over-request on a padded
         index -> host numpy ``(scores (Q, k') f32, rows (Q, k') int32)``,
         ``k' = min(k, n_docs)`` real rows.  The copy to the host waits for
         the calling thread's stream, so the index is no longer read once
-        this returns."""
+        this returns.  ``mark`` (a tracing hook) is called with ``"topk"``
+        on entry and ``"issued"`` once the last launch has returned."""
+        if mark is not None:
+            mark("topk")
         kk = min(k + self.n_pad, int(self.emb.shape[0]))
         q = q_emb.to(self.device).float().contiguous()
         if self.impl == "cuda":
@@ -133,6 +137,8 @@ class ServingIndex:
         else:
             s, i = topk_exact(q, self.emb, k=kk, block=self.block,
                               score_dtype=self.score_dtype)
+        if mark is not None:
+            mark("issued")
         s, i = s.cpu().numpy(), i.cpu().numpy()
         kr = min(k, self.n_docs)
         if not self.n_pad:
@@ -145,12 +151,13 @@ class ServingIndex:
             out_i[qi] = i[qi, keep][:kr]
         return out_s, out_i
 
-    def search(self, q_emb: torch.Tensor, *, k: int):
+    def search(self, q_emb: torch.Tensor, *, k: int,
+               mark: Optional[Callable[[str], None]] = None):
         """Per-row answers: ``(ids_rows, score_rows)`` lists — row ``r``
         of ``q_emb`` gets its top-``k`` doc ids and scores.  Positional
         (not a dict) so duplicate query ids inside one micro-batch cannot
-        collide."""
-        s, i = self.topk(q_emb, k=k)
+        collide.  ``mark``: as :meth:`topk`'s."""
+        s, i = self.topk(q_emb, k=k, mark=mark)
         ids = [[self.doc_ids[j] for j in row] for row in i]
         scores = [[float(v) for v in row] for row in s]
         return ids, scores

@@ -36,12 +36,14 @@ import contextlib
 import dataclasses
 import threading
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.engine import synchronize
 from repro_torch.data.corpus import pad_batch
+from repro_torch.obs.device import DeviceClock
 from repro_torch.serve.admission import AdmissionController, ServeOverloaded
 from repro_torch.serve.index import ServingIndex
 
@@ -66,7 +68,26 @@ class _Request:
         self.event = threading.Event()
         self.response = None
         self.error: Optional[Exception] = None
-        self.t0 = time.time()
+        self.t0 = time.monotonic()      # submitted, on the tracer's clock
+
+
+class _Probe:
+    """Host readings and device marks of one traced micro-batch, taken on
+    the batcher's thread while it scores (``encode``: the query trunk
+    starts; ``topk``: ``ServingIndex.topk`` is entered; ``issued``: its
+    last launch has returned; ``returned``: the answers are on the host)
+    and read only once the batch's answers are released."""
+
+    __slots__ = ("clock", "host", "dev")
+
+    def __init__(self, clock: DeviceClock):
+        self.clock = clock
+        self.host: Dict[str, float] = {}
+        self.dev: Dict[str, Any] = {}
+
+    def mark(self, point: str) -> None:
+        self.host[point] = time.monotonic()
+        self.dev[point] = self.clock.mark()
 
 
 class QueryService:
@@ -83,9 +104,12 @@ class QueryService:
         self.max_batch = int(max_batch)
         self.flush_s = float(flush_ms) / 1000.0
         self.admission = admission
-        # observation only: `served` spans per micro-batch plus occupancy /
-        # flush-window histograms; batching and scoring are unchanged
+        # observation only: per micro-batch a `served` span (with its
+        # `encoded` and `topk` children), a `queued` span per request and
+        # the occupancy histogram, all emitted after the batch's answers
+        # are released; batching and scoring are unchanged
         self.telemetry = telemetry
+        self._clock: Optional[DeviceClock] = None
         if telemetry is not None and admission is not None:
             admission.bind_metrics(telemetry.metrics)
         self._cv = threading.Condition()
@@ -177,7 +201,19 @@ class QueryService:
         ctx = torch.cuda.stream(torch.cuda.Stream(device)) \
             if device.type == "cuda" else contextlib.nullcontext()
         with ctx:
+            if self.telemetry is not None:
+                self._anchor_clock()
             self._loop()
+
+    def _anchor_clock(self) -> None:
+        """The device clock of the traced batches, anchored on the calling
+        thread's stream once it is idle: at the batcher's start, or before
+        the first batch of the synchronous path."""
+        device = torch.device(self.spec.device)
+        synchronize(device)
+        clock = DeviceClock(device)
+        clock.anchor()
+        self._clock = clock
 
     def _loop(self) -> None:
         while True:
@@ -208,40 +244,62 @@ class QueryService:
                 r.error = err
                 r.event.set()
             return
+        tel = self.telemetry
+        probe = None
+        if tel is not None:
+            if self._clock is None:
+                self._anchor_clock()
+            m0 = time.monotonic()
+            probe = _Probe(self._clock)
         try:
-            tel = self.telemetry
-            m0 = time.monotonic() if tel is not None else 0.0
-            ids, scores = self._score(index, [r.tokens for r in reqs])
-            now = time.time()
+            rows = [r.tokens for r in reqs]
+            ids, scores = self._score(index, rows) if probe is None \
+                else self._score(index, rows, probe)
+            now = time.monotonic()
             for r, d, s in zip(reqs, ids, scores):
                 r.response = ServeResponse(qid=r.qid, step=index.step,
                                            doc_ids=d, scores=s,
                                            latency_s=now - r.t0)
             self.served += len(reqs)
             self.batches += 1
-            if tel is not None:
-                occupancy = len(reqs) / self.max_batch
-                # flush-window utilization: how much of the max-latency
-                # budget the oldest request actually waited (>1 = dispatch
-                # overran the window, e.g. a slow prior batch)
-                wait = now - min(r.t0 for r in reqs)
-                flush_util = wait / self.flush_s if self.flush_s > 0 else 0.0
-                tel.record("served", m0, time.monotonic() - m0,
-                           step=index.step, n=len(reqs),
-                           occupancy=occupancy)
-                tel.metrics.histogram("serve.batch_occupancy").observe(
-                    occupancy)
-                tel.metrics.histogram("serve.flush_window_util").observe(
-                    flush_util)
         except Exception as e:         # fail the batch, not the
             for r in reqs:             # serving loop
                 r.error = e
+            probe = None
         finally:
             for r in reqs:
                 r.event.set()
+        if probe is not None:
+            self._trace_batch(tel, index, reqs, m0, probe)
+
+    def _trace_batch(self, tel, index: ServingIndex, reqs: List[_Request],
+                     m0: float, probe: _Probe) -> None:
+        """The spans of one answered batch, emitted after its answers were
+        released: its work is on the host, so every mark is complete."""
+        released = time.monotonic()
+        try:
+            occupancy = len(reqs) / self.max_batch
+            sid = tel.record("served", m0, released - m0, step=index.step,
+                             n=len(reqs), occupancy=occupancy)
+            h, dev = probe.host, {p: probe.clock.resolve(m)
+                                  for p, m in probe.dev.items()}
+            tel.record("encoded", h["encode"], h["topk"] - h["encode"],
+                       parent=sid, role="query", dev_t0=dev["encode"],
+                       dev_s=dev["topk"] - dev["encode"])
+            tel.record("topk", h["topk"], h["returned"] - h["topk"],
+                       parent=sid, issue_s=h["issued"] - h["topk"],
+                       dev_t0=dev["topk"], dev_s=dev["issued"] - dev["topk"])
+            for r in reqs:      # the wait precedes the batch: not a child
+                tel.record("queued", r.t0, m0 - r.t0, parent=None,
+                           qid=r.qid, batch=sid)
+            tel.metrics.histogram("serve.batch_occupancy").observe(
+                occupancy)
+        except Exception:           # observation never stops the batcher
+            tel.metrics.counter("serve.trace_dropped").inc()
 
     @torch.inference_mode()
-    def _score(self, index: ServingIndex, token_rows):
+    def _score(self, index: ServingIndex, token_rows,
+               probe: Optional[_Probe] = None):
         B = len(token_rows)
         toks, mask = pad_batch(list(token_rows), self.spec.q_max_len)
         if B < self.max_batch:
@@ -254,8 +312,14 @@ class QueryService:
             mask = np.concatenate(
                 [mask, np.zeros((pad, mask.shape[1]), mask.dtype)])
         device = torch.device(self.spec.device)
+        if probe is not None:
+            probe.mark("encode")
         q_emb = self.spec.encode_query(index.params,
                                        torch.from_numpy(toks).to(device),
                                        torch.from_numpy(mask).to(device))
-        ids, scores = index.search(q_emb, k=self.k)
+        if probe is None:
+            ids, scores = index.search(q_emb, k=self.k)
+        else:
+            ids, scores = index.search(q_emb, k=self.k, mark=probe.mark)
+            probe.host["returned"] = time.monotonic()
         return ids[:B], scores[:B]

@@ -572,7 +572,7 @@ def test_two_worker_fleet_trace_attribution(tmp_path, small_ds):
     doc = obs_export.write_chrome([trace0, trace1],
                                   str(tmp_path / "fleet.json"))
     tracks = {e["args"]["name"] for e in doc["traceEvents"]
-              if e["ph"] == "M"}
+              if e["ph"] == "M" and e["name"] == "process_name"}
     assert tracks == {"w0", "w1"}
 
 

@@ -447,7 +447,14 @@ def test_solo_validator_traces_full_lifecycle(ds, tmp_path):
     hist = tel.metrics.get(CKPT_TO_VERDICT_METRIC)
     assert hist is not None and hist.count == 1
     assert suite.vcfg.telemetry is tel
-    assert tel.metrics.get("engine.chunk_step_s").count >= 1
+    # a `chunk` span per chunk, with its trunk's and fold's device time,
+    # and a `staged` span per staged batch of chunks
+    chunks = [r for r in recs if r["name"] == "chunk"]
+    staged = [r for r in recs if r["name"] == "staged"]
+    assert sorted(r["chunk"] for r in chunks) == list(range(len(chunks)))
+    assert sum(r["n"] for r in staged) == len(chunks) >= 1
+    assert all(r["parent"] == scored[0]["id"] and r["trunk_s"] > 0
+               and r["fold_s"] > 0 for r in chunks)
 
 
 def _normalized(path):
@@ -591,3 +598,199 @@ def test_cli_obs_flags_end_to_end(ds, tmp_path, capsys):
 def cli_encoder(args):
     """--encoder hook for the CLI test: the toy bag-of-embeddings."""
     return toy_spec()
+
+
+# ---------------------------------------------------------------------------
+# Spans that never touch a query's path
+# ---------------------------------------------------------------------------
+
+def test_emit_writes_no_file_on_an_emitting_thread(tmp_path, monkeypatch):
+    """Emitting only buffers: the file is written by the tracer's writer
+    thread once ``flush_every`` records wait, or by ``flush()``, never by
+    a thread that emits a span."""
+    from repro_torch.obs import trace as obs_trace
+    writers = []
+    real = obs_trace.append_jsonl_atomic
+
+    def spy(path, recs):
+        writers.append(threading.current_thread().name)
+        return real(path, recs)
+
+    monkeypatch.setattr(obs_trace, "append_jsonl_atomic", spy)
+    path = str(tmp_path / "trace.jsonl")
+    quiet = SpanTracer(path, flush_every=10_000)
+    for i in range(500):
+        quiet.record("queued", time.monotonic(), 0.0, qid=str(i))
+    assert writers == [] and not os.path.exists(path)
+    quiet.flush()
+    assert writers == ["MainThread"]
+
+    writers.clear()
+    tr = SpanTracer(str(tmp_path / "busy.jsonl"), flush_every=8)
+
+    def emit(k):
+        for i in range(200):
+            tr.record("queued", time.monotonic(), 0.0, qid=f"{k}.{i}")
+
+    threads = [threading.Thread(target=emit, args=(k,), name=f"client-{k}")
+               for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+        assert not t.is_alive()
+    tr.flush()
+    assert writers and set(writers) <= {"span-writer", "MainThread"}
+    assert len(read_trace(str(tmp_path / "busy.jsonl"))) == 1600
+
+
+def test_clock_record_puts_a_span_on_the_wall_clock(tmp_path):
+    """A ``clock`` record maps a span's monotonic ``t0`` to
+    ``time.time_ns()`` within a millisecond."""
+    from repro_torch.obs import to_time_ns
+    path = str(tmp_path / "trace.jsonl")
+    tr = SpanTracer(path, process="p0")
+    time.sleep(0.05)
+    # the tightest of a few (monotonic, time_ns) brackets: a preempted
+    # thread reads a wide one
+    m0, ns, m1 = min(((time.monotonic(), time.time_ns(), time.monotonic())
+                      for _ in range(20)), key=lambda r: r[2] - r[0])
+    t0 = 0.5 * (m0 + m1)
+    tr.record("served", t0, 0.01)
+    tr.flush()
+    clocks = [r for r in read_trace(path, clocks=True)
+              if r["kind"] == "clock"]
+    assert len(clocks) == 2            # at creation, and with the write
+    assert all(r["process"] == "p0" for r in clocks)
+    (span,) = read_trace(path)
+    assert abs(to_time_ns(span["t0"], clocks) - ns) < 1_000_000
+    # clock records are no stage of a summary
+    assert set(obs_export.stage_summary(
+        read_trace(path, clocks=True))) == {"served"}
+
+
+def _toy_index(seed=0, n=300):
+    from repro_torch.serve.index import ServingIndex
+    g = torch.Generator().manual_seed(seed)
+    emb = torch.nn.functional.normalize(torch.randn(n, DIM, generator=g),
+                                        dim=1)
+    params = {"table": torch.from_numpy(_toy_init(seed)["table"])}
+    return ServingIndex(step=3, params=params,
+                        doc_ids=[f"d{i}" for i in range(n)], emb=emb,
+                        n_docs=n, score_dtype="f32", impl="cuda",
+                        block=64, build_s=0.0)
+
+
+def test_traced_query_service_answers_every_query(tmp_path):
+    """512 queries from 64 threads through a traced service: every one is
+    answered; one ``queued`` span per query, from its submit to its
+    batch's dispatch; each batch's ``served`` span, with its ``encoded``
+    and ``topk`` children, ends after its answers were released."""
+    from repro_torch.serve.service import QueryService
+    path = str(tmp_path / "trace.jsonl")
+    tel = Telemetry(path)
+    svc = QueryService(toy_spec(), k=5, max_batch=8, flush_ms=2.0,
+                       telemetry=tel)
+    svc.install(_toy_index())
+    svc.start()
+    rng = np.random.default_rng(0)
+    queries = {f"q{i}": rng.integers(1, VOCAB, size=int(rng.integers(2, 8)))
+               .tolist() for i in range(512)}
+    results = {}
+    barrier = threading.Barrier(64)
+
+    def client(k):
+        barrier.wait(10)
+        for i in range(k, 512, 64):
+            qid = f"q{i}"
+            results[qid] = svc.submit(qid, queries[qid], timeout=60)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(64)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    svc.stop()
+    tel.flush()
+    assert sorted(results) == sorted(queries)
+    assert all(r.qid == q and len(r.doc_ids) == 5 for q, r in results.items())
+    recs = read_trace(path)
+    queued = [r for r in recs if r["name"] == "queued"]
+    assert sorted(r["qid"] for r in queued) == sorted(queries)
+    served = {r["id"]: r for r in recs if r["name"] == "served"}
+    assert len(served) == svc.batches
+    assert tel.metrics.get("serve.trace_dropped") is None
+    for r in queued:
+        s = served[r["batch"]]
+        assert r["dur"] >= 0 and r["t0"] + r["dur"] == pytest.approx(s["t0"])
+        # the answer was made (t0 + latency_s) before the span ended
+        assert s["t0"] + s["dur"] > r["t0"] + results[r["qid"]].latency_s
+    for name in ("encoded", "topk"):
+        kids = [r for r in recs if r["name"] == name]
+        assert sorted(r["parent"] for r in kids) == sorted(served)
+        assert all(r["dev_s"] > 0 for r in kids)
+    assert all(0 < r["issue_s"] <= r["dur"]
+               for r in recs if r["name"] == "topk")
+
+
+@pytest.mark.parametrize("impl,window", [("cuda", 1), ("torch", 1),
+                                         ("torch", 8)])
+def test_streaming_engine_spans_per_chunk(ds, tmp_path, impl, window):
+    """A ``staged`` span per staged batch and a ``chunk`` span per chunk,
+    with its trunk's and fold's device intervals in order, all nested
+    under ``scored``; the ``encoded`` corpus loop covers them."""
+    tel = Telemetry(str(tmp_path / "trace.jsonl"))
+    suite = _suite(ds, telemetry=tel, impl=impl, scan_window=window,
+                   chunk_size=8)
+    suite.validate_params(_toy_init(1), step=1)
+    tel.flush()
+    recs = read_trace(str(tmp_path / "trace.jsonl"))
+    (scored,) = [r for r in recs if r["name"] == "scored"]
+    chunks = sorted((r for r in recs if r["name"] == "chunk"),
+                    key=lambda r: r["chunk"])
+    staged = [r for r in recs if r["name"] == "staged"]
+    (loop,) = [r for r in recs if r.get("role") == "corpus"]
+    assert [r["chunk"] for r in chunks] == list(range(5))
+    assert len(staged) == (5 if window == 1 else 2)
+    assert sum(r["n"] for r in staged) == 5
+    for r in chunks + staged + [loop]:
+        assert r["parent"] == scored["id"]
+    for a, b in zip(chunks, chunks[1:]):
+        assert a["dev_t0"] + a["dev_s"] <= b["dev_t0"]
+    for r in chunks:
+        assert r["trunk_s"] > 0 and r["fold_s"] > 0
+        assert r["trunk_s"] + r["fold_s"] == pytest.approx(r["dev_s"])
+        assert loop["t0"] <= r["dev_t0"]
+        assert r["dev_t0"] + r["dev_s"] <= loop["t0"] + loop["dur"]
+    assert len([r for r in recs if r["name"] == "uploaded"]) == 1
+    # the exporter draws each chunk's trunk and fold on a device track
+    events = obs_export.to_chrome(recs)["traceEvents"]
+    (track,) = [e for e in events if e["name"] == "thread_name"]
+    assert track["args"]["name"] == "device"
+    dev = [e for e in events if e.get("cat") == "device"]
+    assert all(e["tid"] == track["tid"] for e in dev)
+    assert sorted(e["name"] for e in dev) == ["fold"] * 5 + ["trunk"] * 5
+
+
+def test_no_cuda_event_without_telemetry(ds, tmp_path, monkeypatch):
+    """With ``telemetry=None`` neither the engine nor the service makes a
+    CUDA event."""
+    from repro_torch.serve.service import QueryService
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA event with telemetry off")
+
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    root = str(tmp_path / "ckpts")
+    ckpt.save(root, 1, {"params": _toy_init(1)})
+    w = ValidatorWorker(root, _suite(ds, impl="cuda"))
+    assert w.run_step(1).tasks["default"].metrics
+    svc = QueryService(toy_spec(), k=5, max_batch=4)
+    svc.install(_toy_index())
+    svc.start()
+    try:
+        assert len(svc.submit("q", [1, 2, 3], timeout=30).doc_ids) == 5
+    finally:
+        svc.stop()
+    assert len(svc.answer([("a", [4, 5]), ("b", [6])])) == 2
