@@ -1875,11 +1875,13 @@ def msmarco_part(device, ds, spec, params, step):
     f32 matrix, then bf16 (13.6 GB; the f32 matrix freed).  Per dtype: one
     micro-batch of 8 held against ``topk_exact`` on the card (the same ids,
     scores within 1e-5); 50 micro-batches through ``answer`` (CUDA events
-    around ``ServingIndex.topk``, wall per batch), launches per batch; the
-    kernels alone on prepared inputs (``ms``, profiler ``device_ms`` by
-    kernel, the host time of the window loop), the wrapper as serving
-    calls it (int8: with the corpus quantization, also timed alone), the
-    bytes bound and ``torch.topk(q @ c.T, 10)``."""
+    around ``ServingIndex.topk``, wall per batch), launches per batch (f32:
+    one scan call a batch, the others a call per window); the kernels
+    alone on prepared inputs (``ms``, profiler ``device_ms`` by kernel, the
+    host time of the call), the wrapper as serving calls it (int8: with
+    the corpus quantization, also timed alone), the bytes bound and
+    ``torch.topk(q @ c.T, 10)``.  f32 also times the tiled pass at this
+    shape (``tiled``: the window loop, bit-equal to the scan)."""
     from repro_torch.core.retrieval import topk_exact
     from repro_torch.data.corpus import pad_batch
     from repro_torch.kernels.topk_mips import ops
@@ -1887,11 +1889,11 @@ def msmarco_part(device, ds, spec, params, step):
     from repro_torch.serve import QueryService, ServingIndex
 
     class TimedIndex(ServingIndex):
-        def topk(self, q_emb, *, k):
+        def topk(self, q_emb, *, k, mark=None):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = super().topk(q_emb, k=k)
+            out = super().topk(q_emb, k=k, mark=mark)
             end.record()
             end.synchronize()
             self.times.append(start.elapsed_time(end))
@@ -1945,6 +1947,9 @@ def msmarco_part(device, ds, spec, params, step):
         plain_ms = cuda_time_ms(lambda: topk_exact(
             q, emb, k=k, block=65536, score_dtype=dt), iters=2)
         # the timed micro-batches
+        scan = ops._takes_scan(dt, Q, D, k, N, carry=False,
+                               cols=ops._LIB.cols, max_cand=ops._LIB.max_cand)
+        calls = 1 if scan else windows
         index.times.clear()
         reset_all_launches()
         walls = []
@@ -1953,12 +1958,17 @@ def msmarco_part(device, ds, spec, params, step):
             service.answer(items)
             walls.append((time.perf_counter() - t1) * 1e3)
         counts = {key: n for key, n in all_launches().items() if n}
-        check(counts == {f"topk_mips_{dt}": MSMARCO_BATCHES * windows},
-              f"msmarco {dt}: launches {counts}, expected "
-              f"{MSMARCO_BATCHES} x {windows}")
+        check(counts == {f"topk_mips_{dt}": MSMARCO_BATCHES * calls}
+              and ops.scan_calls == (MSMARCO_BATCHES if scan else 0),
+              f"msmarco {dt}: launches {counts}, {ops.scan_calls} scans, "
+              f"expected {MSMARCO_BATCHES} x {calls}")
         batch_ms = list(index.times)
         # the pieces of one call
         qk, ck, qs, cs = ops._kernel_inputs(q, emb, dt)
+
+        def tiled():
+            return ops._tiled_cuda(dt, qk, ck, qs, cs, k_target=k,
+                                   n_valid=N)
 
         def kernel():
             return ops._topk_cuda(dt, qk, ck, qs, cs, k_target=k,
@@ -1967,6 +1977,18 @@ def msmarco_part(device, ds, spec, params, step):
         compare(dt, kernel(), (torch.from_numpy(gs).to(device),
                                torch.from_numpy(gi).to(device)),
                 exact_ties=True)
+        tiled_row = None
+        if scan:
+            got, want = kernel(), tiled()
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"msmarco {dt}: the scan differs from the tiled pass")
+            t_ms, t_by, t_rec = device_ms_many(
+                f"topk_serve_{dt}_tiled", tiled,
+                {"score_f32": windows, "select_topk": windows})
+            tiled_row = {"ms": cuda_time_ms(tiled, iters=5),
+                         "device_ms": t_ms, "device_ms_by_kernel": t_by,
+                         "profiler_records": t_rec, "windows": windows}
         ms = cuda_time_ms(kernel, iters=5)
         host = []
         for _ in range(5):
@@ -1975,10 +1997,15 @@ def msmarco_part(device, ds, spec, params, step):
             kernel()
             host.append((time.perf_counter() - t1) * 1e3)
         torch.cuda.synchronize()
-        per_call = {"score_f32" if dt == "f32" else "score_tc": windows,
-                    "select_topk": windows}
-        dev_ms, by_kernel, records = device_ms_many(f"topk_serve_{dt}",
-                                                    kernel, per_call)
+        if scan:       # two launches a call: a window of 20 calls
+            dev_ms, by_kernel = device_ms(f"topk_serve_{dt}", kernel,
+                                          ("scan_f32", "select_topk"))
+            records = None
+        else:
+            dev_ms, by_kernel, records = device_ms_many(
+                f"topk_serve_{dt}", kernel,
+                {"score_f32" if dt == "f32" else "score_tc": windows,
+                 "select_topk": windows})
         wrapper_ms = cuda_time_ms(
             lambda: ops.topk_mips(q, emb, k=k, score_dtype=dt), iters=5)
         quant_ms = cuda_time_ms(lambda: ops._kernel_inputs(q, emb, dt),
@@ -1994,7 +2021,7 @@ def msmarco_part(device, ds, spec, params, step):
         row = {"phase": "serve", "part": "d", "shape": "serve",
                "variant": dt, "Q": Q, "N": N, "D": D, "k": k,
                "resident_dtype": str(emb.dtype).replace("torch.", ""),
-               "windows": windows,
+               "windows": windows, "scan": scan,
                "launches_per_batch": counts[f"topk_mips_{dt}"]
                // MSMARCO_BATCHES,
                "max_abs_err": err, "batch_topk_ms": {
@@ -2010,7 +2037,7 @@ def msmarco_part(device, ds, spec, params, step):
                "quantize_share_of_batch": None if quant_ms is None
                else quant_ms / batch_med,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(t_bytes, t_ops),
+               "tiled": tiled_row, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         emit(row)
@@ -4631,9 +4658,11 @@ def flash_instantiations():
 
 # topk_mips kernels by label: the mangled-name pattern of each
 TOPK_BUILD = {"score_f32": r"score_f32", "score_tc<bf16>": r"score_tcIfE",
-              "score_tc<int8>": r"score_tcIiE", "select_topk": r"select_topk"}
+              "score_tc<int8>": r"score_tcIiE", "select_topk": r"select_topk",
+              **{f"scan_f32<{qb}>": rf"scan_f32ILi{qb}EE"
+                 for qb in (1, 2, 4, 8, 16)}}
 # names in the profiler's kernel records
-TOPK_KERNELS = ("score_f32", "score_tc", "select_topk")
+TOPK_KERNELS = ("score_f32", "score_tc", "scan_f32", "select_topk")
 
 
 def topk_instantiations():

@@ -3,6 +3,7 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/topk_mips/kernel.py:
 //   * topk_mips_kernel      (body _mips_kernel)      -> topk_mips_f32 / topk_mips_bf16
 //   * topk_mips_kernel_int8 (body _mips_kernel_int8) -> topk_mips_int8
+// and adds topk_mips_scan_f32 for f32 calls of few query rows (below).
 //
 // Each call returns the top k_out of [carry (kc) || the window's N corpus
 // rows] per query row, in a total order: score descending, then rank
@@ -55,6 +56,25 @@
 // sorts about k keys and need not select; with no informative carry (the
 // first chunk, or the standalone top-k) every column survives and pass 2
 // selects from all of them.
+//
+// The scan (scan_f32), a second f32 pass 1 for few query rows.  A served
+// micro-batch (Q = 8 queries against MS MARCO's N = 8.8 M rows of D = 768)
+// does 2 Q = 16 FLOP for every 4 bytes of corpus it reads: 4 FLOP a byte, a
+// fifth of the 20 at which the f32 FMA rate (67 TFLOP/s) and HBM (3.35
+// TB/s) meet, so reading the 27 GB once (8.1 ms) bounds it.  The tiled
+// pass above pads such a batch to 64 query rows, runs a block per 32 rows
+// and, at 16,384 candidates a window, cuts the corpus into 541 windows of
+// two launches each.  The scan instead reads the corpus once in one
+// persistent launch of a block per SM: every block owns a contiguous span
+// of rows, holds the queries in shared memory, streams its rows through
+// per-warp TMA rings of boxes of 32 rows x 384 contiguous bytes, scores a
+// row a lane with the tiled pass's exact arithmetic (the same fmaf chains
+// and the same sum of eight partials, so the scores are bit-equal), and
+// keeps an exact running top k_out per query; it writes that list as its
+// pass-1 segment, and pass 2 (unchanged) takes the top k_out of the
+// blocks' lists.  The wrapper takes the scan only where the tiled pass
+// would need more than one window, the call has no carry, Q <= 16, k_out
+// <= 32 and the queries fit its shared memory (topk_mips_scan_f32).
 //
 // The carry must be in the output order (the previous call's output, or a
 // constant fill): tau is read as its k_out-th entry, and pass 2 merges it
@@ -753,6 +773,202 @@ select_topk(const Survivor* __restrict__ seg, const int* __restrict__ cnt,
 }
 
 // ---------------------------------------------------------------------------
+// f32 scan for few query rows: one persistent pass over the whole corpus
+// ---------------------------------------------------------------------------
+
+constexpr int SCAN_WARPS = 4;      // warps of a block, each with its own ring
+constexpr int SCAN_SB = 3;         // slabs of a row per TMA box (odd: below)
+constexpr int SCAN_STAGES = 3;     // boxes in flight per warp
+constexpr int SCAN_BOX = 32 * SCAN_SB * SLAB;   // 32 rows, one per lane
+constexpr int SCAN_RING = SCAN_WARPS * SCAN_STAGES * SCAN_BOX;
+constexpr int SCAN_MAX_Q = 16;
+constexpr int SCAN_MAX_K = BN;     // a block's list fills one pass-1 segment
+constexpr int SCAN_QUERY_BYTES = 48 * 1024;     // the queries' shared memory
+constexpr int SCAN_SMEM = 1024 + SCAN_RING + SCAN_QUERY_BYTES +
+                          SCAN_WARPS * SCAN_MAX_Q * BN * 8;
+
+// Insert into a warp's descending list (lane j holds its j-th key) the key
+// of each lane of m that beats the list's k_out-th key, lowest lane first.
+// Keys are unique, so the place of x is the number of larger keys.
+__device__ __forceinline__ uint64_t insert_keys(uint64_t list, uint64_t key,
+                                                unsigned m, int k_out,
+                                                int lane) {
+  while (m) {
+    const int src = __ffs(m) - 1;
+    const uint64_t x = __shfl_sync(FULL, key, src);
+    const int at = __popc(__ballot_sync(FULL, list > x));
+    const uint64_t up = __shfl_up_sync(FULL, list, 1);
+    list = lane < at ? list : lane == at ? x : up;
+    const uint64_t kth = __shfl_sync(FULL, list, k_out - 1);
+    m = __ballot_sync(FULL, key > kth) & (src == 31 ? 0u : ~0u << (src + 1));
+  }
+  return list;
+}
+
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// Few query rows (Q <= QB <= 16): the corpus streams through once, in a
+// persistent grid.  Block b owns the contiguous span of 32-row tiles
+// [b T / G, (b + 1) T / G); its warp w takes tiles w, w + SCAN_WARPS, ...
+// of the span, one row a lane.  Each warp feeds its own ring: lane 0 asks
+// TMA for box it + SCAN_STAGES once every lane has arrived on the empty
+// barrier of box it.  A box is sb 128-byte slabs of its 32 rows (sb =
+// SCAN_SB through a 3-D map when D is a multiple of 32 floats, else 1
+// through a 2-D one), swizzled on 128-byte rows: the 128-byte row lane * sb
+// + y holds chunk w at w ^ ((lane * sb + y) % 8), so with sb odd a quarter
+// warp's eight rows hit eight distinct bank groups.  The queries sit in
+// shared memory (zero past Q and D) and each read is a broadcast.  A lane
+// scores its row as score_f32 does, bit for bit: partial w is the fmaf
+// chain over features 32 i + 4 w + {0, 1, 2, 3} in slab order, and the
+// score is 0.f + partial 0 + ... + partial 7.  Each warp keeps an exact
+// descending list of keys per query; a key enters only if it beats the
+// list's k_out-th, so after the first rows almost none does.  At the end the
+// lists of a query are merged into the first warp's and the block writes
+// it as pass-1 segment (query, block): pass 2 takes the top k_out of the
+// union of exact per-span lists, which is the corpus's.
+template <int QB>
+__global__ void __launch_bounds__(32 * SCAN_WARPS, 1)
+scan_f32(const __grid_constant__ CUtensorMap tcor, const float* __restrict__ q,
+         int Q, int N, int D, int n_slabs, int sb, int k_out,
+         Survivor* __restrict__ seg, int* __restrict__ cnt) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * SCAN_WARPS * SCAN_STAGES];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t base = smem_addr(smem_raw);
+  const uint32_t ring0 = (base + 1023) & ~1023u;
+  const uint8_t* ring_p = smem_raw + (ring0 - base) +
+                          warp * SCAN_STAGES * SCAN_BOX;
+  const uint32_t ring = ring0 + warp * SCAN_STAGES * SCAN_BOX;
+  float* qsm = reinterpret_cast<float*>(smem_raw + (ring0 - base) + SCAN_RING);
+  const int q_row = n_slabs * 32;                 // floats per query row
+  uint64_t* lists = reinterpret_cast<uint64_t*>(qsm + QB * q_row);
+  const uint32_t full = smem_addr(bars) + 8 * SCAN_STAGES * warp;
+  const uint32_t empty = full + 8 * SCAN_STAGES * SCAN_WARPS;
+
+  const int tiles = (N + 31) / 32;
+  const int t0 = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+  const int mine = t1 - t0 > warp
+                       ? (t1 - t0 - warp + SCAN_WARPS - 1) / SCAN_WARPS
+                       : 0;
+  const int boxes = (n_slabs + sb - 1) / sb;      // a tile's boxes
+  const int loads = mine * boxes;
+  auto load = [&](int it) {
+    const int s = it % SCAN_STAGES;
+    const int row0 = (t0 + warp + it / boxes * SCAN_WARPS) * 32;
+    const int slab0 = it % boxes * sb;
+    mbar_expect_tx(full + 8 * s, 32 * sb * SLAB);
+    if (sb > 1)
+      tma_load3(ring + s * SCAN_BOX, &tcor, full + 8 * s, 0, slab0, row0);
+    else
+      tma_load(ring + s * SCAN_BOX, &tcor, full + 8 * s, slab0 * 32, row0);
+  };
+
+  if (lane == 0) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(
+                     reinterpret_cast<uint64_t>(&tcor))
+                 : "memory");
+    for (int s = 0; s < SCAN_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  wait_for_previous();
+  if (lane == 0)
+    for (int it = 0; it < SCAN_STAGES && it < loads; ++it) load(it);
+  for (int i = tid; i < QB * q_row; i += blockDim.x) {
+    const int r = i / q_row, f = i % q_row;
+    qsm[i] = r < Q && f < D ? q[(size_t)r * D + f] : 0.f;
+  }
+  for (int i = tid; i < SCAN_WARPS * QB * BN; i += blockDim.x) lists[i] = 0;
+  __syncthreads();
+
+  for (int j = 0, it = 0; j < mine; ++j) {
+    float acc[QB][8];
+#pragma unroll
+    for (int qi = 0; qi < QB; ++qi)
+#pragma unroll
+      for (int w = 0; w < 8; ++w) acc[qi][w] = 0.f;
+    for (int bx = 0; bx < boxes; ++bx, ++it) {
+      const int s = it % SCAN_STAGES;
+      mbar_wait(full + 8 * s, (it / SCAN_STAGES) & 1);
+      const int ns = min(sb, n_slabs - bx * sb);
+      for (int y = 0; y < ns; ++y) {
+        const int r128 = lane * sb + y;           // the box's 128-byte row
+        const uint8_t* src = ring_p + s * SCAN_BOX + r128 * SLAB;
+        float4 b[8];
+#pragma unroll
+        for (int w = 0; w < 8; ++w)
+          b[w] = *reinterpret_cast<const float4*>(src + 16 * (w ^ (r128 & 7)));
+        const float* qs = qsm + (bx * sb + y) * 32;
+#pragma unroll
+        for (int qi = 0; qi < QB; ++qi)
+#pragma unroll
+          for (int w = 0; w < 8; ++w) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(qs + qi * q_row + 4 * w);
+            acc[qi][w] = fmaf(a.x, b[w].x, acc[qi][w]);
+            acc[qi][w] = fmaf(a.y, b[w].y, acc[qi][w]);
+            acc[qi][w] = fmaf(a.z, b[w].z, acc[qi][w]);
+            acc[qi][w] = fmaf(a.w, b[w].w, acc[qi][w]);
+          }
+      }
+      mbar_arrive(empty + 8 * s);
+      if (lane == 0 && it + SCAN_STAGES < loads) {
+        mbar_wait(empty + 8 * s, (it / SCAN_STAGES) & 1);
+        load(it + SCAN_STAGES);
+      }
+    }
+    const int row = (t0 + warp + j * SCAN_WARPS) * 32 + lane;
+#pragma unroll
+    for (int qi = 0; qi < QB; ++qi) {
+      if (qi >= Q) break;
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) v += acc[qi][w];
+      const uint64_t key = row < N ? make_key(v, row) : 0;
+      uint64_t* list = lists + (warp * QB + qi) * BN;
+      const unsigned m = __ballot_sync(FULL, key > list[k_out - 1]);
+      if (m) {
+        list[lane] = insert_keys(list[lane], key, m, k_out, lane);
+        __syncwarp();
+      }
+    }
+  }
+
+  // merge the warps' lists of a query into the first warp's; a list past
+  // its k_out-th key holds nothing the union's top k_out can take
+  __syncthreads();
+  for (int qi = warp; qi < Q; qi += SCAN_WARPS) {
+    uint64_t list = lists[qi * BN + lane];
+    for (int w2 = 1; w2 < SCAN_WARPS; ++w2) {
+      const uint64_t key = lists[(w2 * QB + qi) * BN + lane];
+      const uint64_t kth = __shfl_sync(FULL, list, k_out - 1);
+      list = insert_keys(list, key,
+                         __ballot_sync(FULL, lane < k_out && key > kth), k_out,
+                         lane);
+    }
+    const int n = __popc(__ballot_sync(FULL, lane < k_out && list != 0));
+    const size_t at = (size_t)qi * gridDim.x + blockIdx.x;
+    if (lane < n)
+      seg[at * BN + lane] = {key_score(list),
+                             static_cast<int>(0xFFFFFFFFu -
+                                              static_cast<uint32_t>(list))};
+    if (lane == 0) cnt[at] = n;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -824,12 +1040,14 @@ bool bad_shape(int Q, int N, int D, int row_bytes, int kc, int k_out) {
 
 // A 2-D map (feature, row) over a row-major (rows, D) tensor in 128-byte
 // boxes of box_rows rows, 128-byte swizzle; out-of-bounds reads are zeros.
-// A map only describes an address and a geometry, so the last few are kept
-// and reused for the same (address, rows, D, type, box).
+// With box_slabs > 0 (D a multiple of 128 bytes) the map is 3-D (feature
+// in a slab, slab, row) and a box holds box_slabs consecutive slabs of each
+// of its rows.  A map only describes an address and a geometry, so the last
+// few are kept and reused for the same (address, rows, D, type, box).
 struct MapEntry {
   CUtensorMap map;
   const void* p;
-  int rows, D, es, box_rows;
+  int rows, D, es, box_rows, box_slabs;
 };
 constexpr int MAP_CACHE = 16;
 MapEntry map_cache[MAP_CACHE];
@@ -837,30 +1055,75 @@ int map_next = 0;
 std::mutex map_lock;
 
 int encode(CUtensorMap* map, int es, const void* p, int rows, int D,
-           int box_rows) {
+           int box_rows, int box_slabs = 0) {
   std::lock_guard<std::mutex> guard(map_lock);
   for (const MapEntry& m : map_cache)
     if (m.p == p && m.rows == rows && m.D == D && m.es == es &&
-        m.box_rows == box_rows) {
+        m.box_rows == box_rows && m.box_slabs == box_slabs) {
       *map = m.map;
       return 0;
     }
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * es};
-  const cuuint32_t box[2] = {(cuuint32_t)(SLAB / es), (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
+  const cuuint32_t cols = SLAB / es;
+  const cuuint64_t dims2[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t dims3[3] = {cols, (cuuint64_t)D / cols, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {box_slabs ? (cuuint64_t)SLAB
+                                           : (cuuint64_t)D * es,
+                                 (cuuint64_t)D * es};
+  const cuuint32_t box2[2] = {cols, (cuuint32_t)box_rows};
+  const cuuint32_t box3[3] = {cols, (cuuint32_t)box_slabs,
+                              (cuuint32_t)box_rows};
+  const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = encode_tiled(
       map,
       es == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
       : es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-      2, const_cast<void*>(p), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      box_slabs ? 3 : 2, const_cast<void*>(p), box_slabs ? dims3 : dims2,
+      strides, box_slabs ? box3 : box2, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return -static_cast<int>(res);
-  map_cache[map_next] = {*map, p, rows, D, es, box_rows};
+  map_cache[map_next] = {*map, p, rows, D, es, box_rows, box_slabs};
   map_next = (map_next + 1) % MAP_CACHE;
   return 0;
+}
+
+size_t scan_smem(int qb, int n_slabs) {
+  return 1024 + SCAN_RING + (size_t)qb * n_slabs * SLAB +
+         (size_t)SCAN_WARPS * qb * BN * 8;
+}
+
+// The scan's pass 1, then pass 2 over its blocks' lists.
+int scan(const void* q, const void* c, int Q, int N, int D, int k_out,
+         int blocks, Survivor* seg, int* cnt, float* out_s, int* out_i,
+         cudaStream_t st) {
+  const int n_slabs = (D * 4 + SLAB - 1) / SLAB;
+  const int qb = next_pow2(Q);
+  if (Q <= 0 || Q > SCAN_MAX_Q || N <= 0 || D <= 0 || D % 4 ||
+      k_out <= 0 || k_out > SCAN_MAX_K || k_out > N || blocks <= 0 ||
+      blocks * BN > MAX_CAND || qb * n_slabs * SLAB > SCAN_QUERY_BYTES)
+    return (int)cudaErrorInvalidValue;
+  if (encode_tiled == nullptr) return NO_ENCODER;
+  const int sb = D % 32 == 0 ? SCAN_SB : 1;
+  CUtensorMap tcor;
+  const int rc = encode(&tcor, 4, c, N, D, 32, sb > 1 ? sb : 0);
+  if (rc != 0) return rc;
+  const size_t smem = scan_smem(qb, n_slabs);
+  cudaError_t err;
+#define SCAN_LAUNCH(QB)                                                      \
+  launch(scan_f32<QB>, dim3(blocks), 32 * SCAN_WARPS, smem, st, tcor,        \
+         static_cast<const float*>(q), Q, N, D, n_slabs, sb, k_out, seg, cnt)
+  switch (qb) {
+    case 1: err = SCAN_LAUNCH(1); break;
+    case 2: err = SCAN_LAUNCH(2); break;
+    case 4: err = SCAN_LAUNCH(4); break;
+    case 8: err = SCAN_LAUNCH(8); break;
+    default: err = SCAN_LAUNCH(16); break;
+  }
+#undef SCAN_LAUNCH
+  if (err != cudaSuccess) return (int)err;
+  return select_pass(seg, cnt, Q, blocks, nullptr, nullptr, 0, 0, k_out,
+                     out_s, out_i, st);
 }
 
 // Both passes for elements of ES bytes: 4 (f32), 2 (bf16) or 1 (int8).
@@ -917,6 +1180,12 @@ int topk_mips_init() {
     err = cudaFuncSetAttribute(
         select_topk, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)select_smem(MAX_K, (MAX_CAND - MAX_K) / BN, MAX_K));
+  decltype(&scan_f32<1>) scans[] = {scan_f32<1>, scan_f32<2>, scan_f32<4>,
+                                    scan_f32<8>, scan_f32<16>};
+  for (auto kernel : scans)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SCAN_SMEM);
   if (err != cudaSuccess) return (int)err;
   void* p = nullptr;
   cudaDriverEntryPointQueryResult found;
@@ -941,6 +1210,30 @@ int topk_mips_f32(const void* q, const void* c, int Q, int N, int D,
                   void* stream) {
   return run<4>(q, c, nullptr, nullptr, Q, N, D, carry_s, carry_i, kc, base,
                 k_out, seg, cnt, out_s, out_i, stream);
+}
+
+// Blocks of the scan on the current device: one per SM.  Returns a
+// negative cudaError_t when the device cannot be read.
+int topk_mips_scan_blocks() {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err != cudaSuccess ? -(int)err : min(sms, MAX_CAND / BN);
+}
+
+// The scan for few query rows: q (Q, D) and c (N, D) row-major f32, every
+// one of the N rows eligible, Q <= 16, k_out <= min(32, N), next_pow2(Q)
+// rows of ceil(D / 32) * 32 floats within 48 KB.  One pass over c by
+// ``blocks`` blocks (topk_mips_scan_blocks()), then pass 2 over their lists.
+// seg: scratch of Q * blocks * 32 (score, row) pairs; cnt: of Q * blocks
+// ints.  out: (Q, k_out), rows of c.  Returns a cudaError_t, or a negative
+// value when no tensor map could be encoded.
+int topk_mips_scan_f32(const void* q, const void* c, int Q, int N, int D,
+                       int k_out, int blocks, void* seg, int* cnt,
+                       float* out_s, int* out_i, void* stream) {
+  return scan(q, c, Q, N, D, k_out, blocks, static_cast<Survivor*>(seg), cnt,
+              out_s, out_i, static_cast<cudaStream_t>(stream));
 }
 
 // Same contract with bf16 q and c; products and sums are f32.

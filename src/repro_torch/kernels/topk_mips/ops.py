@@ -2,13 +2,21 @@
 
 The kernels replace the Pallas TPU kernels of the reference
 (``src/repro/kernels/topk_mips/kernel.py``: ``topk_mips_kernel`` at f32 and
-bf16, ``topk_mips_kernel_int8`` at int8).  Each call is two launches: pass 1
-scores (64 query rows) x (32 corpus rows) tiles (bf16 and int8 on the tensor
-cores through ``wgmma``, f32 as a register-tiled FMA product with no TF32,
-both fed by TMA) and keeps only the scores that can still enter the top k (strictly
-above the carry's k-th score once the carry is full); pass 2 radix-selects
-the k-th key of carry || survivors per row and sorts only the k it keeps.
-The source says why and how.
+bf16, ``topk_mips_kernel_int8`` at int8).  Each library call is two
+launches: pass 1 scores (64 query rows) x (32 corpus rows) tiles (bf16 and
+int8 on the tensor cores through ``wgmma``, f32 as a register-tiled FMA
+product with no TF32, both fed by TMA) and keeps only the scores that can
+still enter the top k (strictly above the carry's k-th score once the
+carry is full); pass 2 radix-selects the k-th key of carry || survivors
+per row and sorts only the k it keeps.  The source says why and how.
+
+A :func:`topk_mips` call of few query rows over a corpus longer than one
+window (a served micro-batch) takes the scan instead (:func:`_takes_scan`:
+f32, no carry, at most ``SCAN_MAX_Q`` queries, ``k <= SCAN_MAX_K``, the
+queries within the scan's shared memory): its pass 1 reads the corpus once
+in one persistent launch and leaves one list per block, the same pass 2
+merges them, and its scores are bit-equal to the tiled pass's.  Two
+launches a call on either path.
 
 The kernels need rows of a 16-byte multiple: :func:`padded_dim` gives the
 feature width they take and :func:`pad_features` zero-pads to it (zeros
@@ -23,6 +31,8 @@ no fallback from one to the other.
 
 ``launches`` counts kernel launches per variant (``f32``, ``bf16``,
 ``int8``): one for each call into the library, which runs both passes.
+``scan_calls`` counts the f32 calls that took the scan (each also counts in
+``launches["f32"]``).
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ __all__ = ["SCORE_DTYPES", "MAX_K", "pad_features", "padded_dim",
 MAX_K = 4096
 
 launches: Dict[str, int] = {"f32": 0, "bf16": 0, "int8": 0}
+scan_calls = 0
 # fleet workers on threads of one process launch concurrently
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -57,11 +68,19 @@ _I = ctypes.c_int
 _FLOAT_ARGS = [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
 _INT8_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
               _P, _P, _P, _P, _P]
+_SCAN_ARGS = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+
+#: the scan's limits, as in ``csrc/topk_mips.cu``: query rows, k, and the
+#: shared memory of its queries (rows padded to a power of two, features
+#: to a multiple of 32)
+SCAN_MAX_Q, SCAN_MAX_K, SCAN_QUERY_BYTES = 16, 32, 48 * 1024
 
 
 def reset_launches() -> None:
+    global scan_calls
     for key in launches:
         launches[key] = 0
+    scan_calls = 0
 
 
 #: the kernel's library: name -> sources under ``csrc/``
@@ -74,7 +93,7 @@ def _lib(device: torch.device) -> ctypes.CDLL:
     """The built library, typed, with its entry points by variant
     (``entry``), its geometry (``cols``: corpus rows per pass-1 tile,
     ``max_cand``: pass 2's keys per row) and the devices it has set up
-    (``ready``); each read once."""
+    (``ready``) with their scan grids (``scan_blocks``); each read once."""
     global _LIB
     if _LIB is None:
         from repro_torch.kernels.build import load_libraries
@@ -82,26 +101,34 @@ def _lib(device: torch.device) -> ctypes.CDLL:
         lib.topk_mips_f32.argtypes = _FLOAT_ARGS
         lib.topk_mips_bf16.argtypes = _FLOAT_ARGS
         lib.topk_mips_int8.argtypes = _INT8_ARGS
+        lib.topk_mips_scan_f32.argtypes = _SCAN_ARGS
         for fn in (lib.topk_mips_f32, lib.topk_mips_bf16, lib.topk_mips_int8,
-                   lib.topk_mips_block_cols, lib.topk_mips_max_candidates,
-                   lib.topk_mips_init):
+                   lib.topk_mips_scan_f32, lib.topk_mips_block_cols,
+                   lib.topk_mips_max_candidates, lib.topk_mips_init,
+                   lib.topk_mips_scan_blocks):
             fn.restype = _I
         for fn in (lib.topk_mips_block_cols, lib.topk_mips_max_candidates,
-                   lib.topk_mips_init):
+                   lib.topk_mips_init, lib.topk_mips_scan_blocks):
             fn.argtypes = []
         lib.entry = {"f32": lib.topk_mips_f32, "bf16": lib.topk_mips_bf16,
                      "int8": lib.topk_mips_int8}
         lib.cols = lib.topk_mips_block_cols()
         lib.max_cand = lib.topk_mips_max_candidates()
         lib.ready = set()
+        lib.scan_blocks = {}
         _LIB = lib
     if device.index not in _LIB.ready:
         with torch.cuda.device(device):
             rc = _LIB.topk_mips_init()
+            blocks = _LIB.topk_mips_scan_blocks()
         if rc == _NO_ENCODER:
             raise RuntimeError("topk_mips: cuTensorMapEncodeTiled not found")
         if rc != 0:
             raise RuntimeError(f"topk_mips_init failed with CUDA error {rc}")
+        if blocks <= 0:
+            raise RuntimeError(f"topk_mips_scan_blocks failed with CUDA "
+                               f"error {-blocks}")
+        _LIB.scan_blocks[device.index] = blocks
         _LIB.ready.add(device.index)
     return _LIB
 
@@ -204,45 +231,101 @@ def _windows(n_valid: int, k_target: int, kc: int, cols: int,
 
 def _topk_cuda(score_dtype: str, q, c, q_scale, c_scale, *, k_target: int,
                n_valid: int, carry=None, base: int = 0):
-    """Top ``k_target`` of ``carry || c[:n_valid]`` per query row, one
-    launch per window of :func:`_windows`."""
+    """Top ``k_target`` of ``carry || c[:n_valid]`` per query row: by the
+    scan where :func:`_takes_scan` says so, else by the tiled pass."""
     index = q.device.index
     lib = _LIB if _LIB is not None and index in _LIB.ready else _lib(q.device)
-    lib_fn, cols = lib.entry[score_dtype], lib.cols
+    if _takes_scan(score_dtype, q.shape[0], padded_dim(q.shape[1], "f32"),
+                   k_target, n_valid, carry=carry is not None, cols=lib.cols,
+                   max_cand=lib.max_cand):
+        return _scan_cuda(q, c, k_target=k_target, n_valid=n_valid)
+    return _tiled_cuda(score_dtype, q, c, q_scale, c_scale,
+                       k_target=k_target, n_valid=n_valid, carry=carry,
+                       base=base)
+
+
+def _tiled_cuda(score_dtype: str, q, c, q_scale, c_scale, *, k_target: int,
+                n_valid: int, carry=None, base: int = 0):
+    """Top ``k_target`` of ``carry || c[:n_valid]`` per query row by the
+    tiled pass, one launch per window of :func:`_windows`."""
+    index = q.device.index
+    lib = _LIB if _LIB is not None and index in _LIB.ready else _lib(q.device)
+    cols = lib.cols
     Q, D = q.shape
     Dp = padded_dim(D, score_dtype)
     q, c = pad_features(q, Dp), pad_features(c, Dp)
     row_bytes = Dp * ELEM_BYTES[score_dtype]
     run_s, run_i = carry if carry is not None else (None, None)
-    stream = torch._C._cuda_getCurrentRawStream(index)
     for w0, width, kc, k_out in _windows(
             n_valid, k_target, 0 if run_s is None else run_s.shape[1], cols,
             lib.max_cand):
-        # one allocation: out_s and out_i, then the survivors' (score, row)
-        # pairs and counts of the window's Q x n_tiles segments
-        n_tiles = -(-width // cols)
-        words = Q * k_out
-        buf = torch.empty((2 + -(-(2 * cols + 1) * Q * n_tiles // words), Q,
-                           k_out), dtype=torch.float32, device=q.device)
-        ptr = buf.data_ptr()
-        seg = ptr + 8 * words                   # 8-byte aligned pairs
         head = [q.data_ptr(), c.data_ptr() + w0 * row_bytes]
         if score_dtype == "int8":
             head += [q_scale.data_ptr(), c_scale.data_ptr() + 4 * w0]
-        rc = lib_fn(*head, Q, width, Dp, _ptr(run_s), _ptr(run_i), kc,
-                    base + w0, k_out, seg, seg + 8 * cols * Q * n_tiles, ptr,
-                    ptr + 4 * words, stream)
-        if rc < 0:
-            raise RuntimeError(f"topk_mips_{score_dtype}: "
-                               f"cuTensorMapEncodeTiled refused a tensor map "
-                               f"(CUresult {-rc})")
-        if rc != 0:
-            raise RuntimeError(f"topk_mips_{score_dtype} launch failed with "
-                               f"CUDA error {rc}")
+        run_s, run_i = _library_call(
+            f"topk_mips_{score_dtype}", lib.entry[score_dtype],
+            head + [Q, width, Dp, _ptr(run_s), _ptr(run_i), kc, base + w0,
+                    k_out], q.device, Q, k_out, -(-width // cols), cols)
         with _LAUNCHES_LOCK:
             launches[score_dtype] += 1
-        run_s, run_i = buf[0], buf[1].view(torch.int32)
     return run_s, run_i
+
+
+def _takes_scan(score_dtype: str, Q: int, D: int, k_out: int, n_valid: int,
+                *, carry: bool, cols: int, max_cand: int) -> bool:
+    """Whether a call takes the scan rather than the tiled pass: f32, no
+    carry (:func:`topk_mips`; :func:`topk_mips_chunk` always folds one), at
+    most ``SCAN_MAX_Q`` query rows of ``D`` features (the kernels' padded
+    width) that fit the scan's shared memory, ``k_out <= SCAN_MAX_K``, and
+    rows that :func:`_windows` would cut into more than one window of
+    ``cols``-row tiles within ``max_cand`` candidates."""
+    q_rows = 1 << max(0, Q - 1).bit_length()
+    return (score_dtype == "f32" and not carry and 0 < Q <= SCAN_MAX_Q
+            and 0 < k_out <= SCAN_MAX_K
+            and q_rows * -(-D // 32) * 32 * 4 <= SCAN_QUERY_BYTES
+            and -(-n_valid // cols) * cols > max_cand)
+
+
+def _scan_cuda(q, c, *, k_target: int, n_valid: int):
+    """Top ``k_target`` of ``c[:n_valid]`` per query row of f32 ``q`` by
+    the scan: one library call, whatever the corpus's length, whose blocks
+    each leave one pass-1 segment a query row."""
+    global scan_calls
+    index = q.device.index
+    lib = _LIB if _LIB is not None and index in _LIB.ready else _lib(q.device)
+    Q, D = q.shape
+    Dp = padded_dim(D, "f32")
+    q, c = pad_features(q, Dp), pad_features(c, Dp)
+    blocks = lib.scan_blocks[index]
+    out = _library_call(
+        "topk_mips_scan_f32", lib.topk_mips_scan_f32,
+        [q.data_ptr(), c.data_ptr(), Q, n_valid, Dp, k_target, blocks],
+        q.device, Q, k_target, blocks, lib.cols)
+    with _LAUNCHES_LOCK:
+        launches["f32"] += 1
+        scan_calls += 1
+    return out
+
+
+def _library_call(name: str, fn, args, device, Q: int, k_out: int,
+                  n_seg: int, cols: int):
+    """``fn(*args, seg, cnt, out_s, out_i, stream)`` on the current stream,
+    with one allocation: out_s and out_i (Q, k_out), then the (score, row)
+    pairs of Q x n_seg pass-1 segments of ``cols`` slots and their counts.
+    Returns (out_s, out_i) or raises with the library's code."""
+    words = Q * k_out
+    buf = torch.empty((2 + -(-(2 * cols + 1) * Q * n_seg // words), Q,
+                       k_out), dtype=torch.float32, device=device)
+    ptr = buf.data_ptr()
+    seg = ptr + 8 * words                       # 8-byte aligned pairs
+    rc = fn(*args, seg, seg + 8 * cols * Q * n_seg, ptr, ptr + 4 * words,
+            torch._C._cuda_getCurrentRawStream(device.index))
+    if rc < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (CUresult {-rc})")
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+    return buf[0], buf[1].view(torch.int32)
 
 
 def _validate(score_dtype: str, k: int) -> None:

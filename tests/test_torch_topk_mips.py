@@ -9,6 +9,8 @@ orders) with equal top-k rank sets; int8 images and raw int32 scores equal,
 dequantized scores within rtol 1e-6.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -259,14 +261,9 @@ def _larger(desc, keys):
 def _emulate_launch(scores, carry_s, carry_i, base, k_out):
     """One library call.  Pass 1: tiles of 32 rows, the strict filter at
     the carry's k_out-th score, survivors compacted per segment.  Pass 2:
-    when more survive than the sort takes (max(next_pow2(k_out), 256)), the
-    radix select of the k_out-th survivor key (8-bit digits, stopping when
-    the boundary digit holds exactly the keys still needed); the survivors
-    kept, sorted; each entry placed at its place in its own list plus the
-    number of larger keys in the other."""
+    :func:`_emulate_select`."""
     Q, N = scores.shape
     kc = 0 if carry_s is None else carry_s.shape[1]
-    kc_used = min(kc, k_out)
     n_tiles = -(-N // BN)
     seg_s = np.zeros((Q, n_tiles, BN), np.float32)
     seg_c = np.zeros((Q, n_tiles, BN), np.int64)
@@ -280,6 +277,19 @@ def _emulate_launch(scores, carry_s, carry_i, base, k_out):
             cnt[r, t] = keep.sum()
             seg_s[r, t, :cnt[r, t]] = s[keep]
             seg_c[r, t, :cnt[r, t]] = cols[keep]
+    return _emulate_select(seg_s, seg_c, cnt, carry_s, carry_i, base, k_out)
+
+
+def _emulate_select(seg_s, seg_c, cnt, carry_s, carry_i, base, k_out):
+    """Pass 2 over pass-1 segments (Q, n_tiles, 32) and their counts: when
+    more survive than the sort takes (max(next_pow2(k_out), 256)), the
+    radix select of the k_out-th survivor key (8-bit digits, stopping when
+    the boundary digit holds exactly the keys still needed); the survivors
+    kept, sorted; each entry placed at its place in its own list plus the
+    number of larger keys in the other."""
+    Q, n_tiles = cnt.shape
+    kc = 0 if carry_s is None else carry_s.shape[1]
+    kc_used = min(kc, k_out)
     out_s = np.full((Q, k_out), np.nan, np.float32)
     out_i = np.full((Q, k_out), -1, np.int64)
     for r in range(Q):
@@ -323,7 +333,7 @@ def _emulate_launch(scores, carry_s, carry_i, base, k_out):
 
 def _emulate(score_dtype, q, c, *, k_target, n_valid, carry=None, base=0,
              max_cand=16384):
-    """``ops._topk_cuda`` with every library call emulated: the same
+    """``ops._tiled_cuda`` with every library call emulated: the same
     windows, each scored with the plain version's arithmetic."""
     qk, ck, _, _ = ops._kernel_inputs(q, c, score_dtype)
     run_s, run_i = (None, None) if carry is None else \
@@ -442,3 +452,137 @@ def test_keys_order_scores_then_ranks():
     order = np.argsort(keys)[::-1]
     assert order.tolist() == [6, 0, 4, 2, 3, 1, 5]
     np.testing.assert_array_equal(_key_score(keys), s + np.float32(0))
+
+
+# ---------------------------------------------------------------------------
+# The scan (few query rows, one pass over the corpus), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+SCAN_WARPS = 4   # warps of a scan block, as in csrc/topk_mips.cu
+
+
+def _insert(lst, keys, k_out):
+    """The kernel's ``insert_keys`` on a warp's descending list of 32 keys
+    (0 when empty): each key, in lane order, enters if it beats the list's
+    k_out-th at its turn."""
+    for x in keys[keys > lst[k_out - 1]]:
+        if x > lst[k_out - 1]:
+            at = int((lst > x).sum())
+            lst[at + 1:] = lst[at:-1].copy()
+            lst[at] = x
+    return lst
+
+
+def _emulate_scan(scores, k_out, blocks):
+    """One scan call over the (Q, n) scores.  Block b owns the 32-row tiles
+    [b T / G, (b + 1) T / G); its warp w takes the span's tiles w, w + 4,
+    ... one row a lane, and keeps a list per query; the block merges its
+    warps' lists (their first k_out keys, in order) into the first warp's
+    and writes the list's keys as segment (query, b).  Pass 2 as the
+    library's over those segments, with no carry."""
+    Q, n = scores.shape
+    keys = np.stack([_keys(scores[r], np.arange(n)) for r in range(Q)])
+    seg_s = np.zeros((Q, blocks, BN), np.float32)
+    seg_c = np.zeros((Q, blocks, BN), np.int64)
+    cnt = np.zeros((Q, blocks), np.int64)
+    tiles = -(-n // BN)
+    for b in range(blocks):
+        t0, t1 = b * tiles // blocks, (b + 1) * tiles // blocks
+        lists = np.zeros((SCAN_WARPS, Q, BN), np.uint64)
+        for t in range(t0, t1):
+            rows = np.arange(t * BN, (t + 1) * BN)
+            for r in range(Q):
+                tile = np.where(rows < n, keys[r, np.minimum(rows, n - 1)],
+                                np.uint64(0))
+                _insert(lists[(t - t0) % SCAN_WARPS, r], tile, k_out)
+        for r in range(Q):
+            lst = lists[0, r]
+            for w in range(1, SCAN_WARPS):
+                _insert(lst, lists[w, r, :k_out], k_out)
+            kept = lst[:k_out][lst[:k_out] != 0]
+            cnt[r, b] = len(kept)
+            seg_s[r, b, :len(kept)] = _key_score(kept)
+            seg_c[r, b, :len(kept)] = (np.uint64(0xFFFFFFFF)
+                                       - (kept & np.uint64(0xFFFFFFFF)))
+    return _emulate_select(seg_s, seg_c, cnt, None, None, 0, k_out)
+
+
+SCAN_CASES = (
+    [(Q, k, blocks, "random") for Q in (1, 3, 8, 16) for k in (1, 10, 32)
+     for blocks in (1, 7, 264)]
+    + [(3, 10, 7, "ragged"), (8, 32, 264, "ragged"), (16, 1, 1, "ragged"),
+       (3, 10, 7, "ties"), (8, 32, 7, "ties"), (8, 1, 264, "ties")])
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_case(Q, k, kind):
+    """Inputs (q, c, n_valid) of a scan case and the JAX kernel's top-k.
+    ``ragged``: 2,500 rows of which the first 2,300 are real, so the last
+    span ends inside a tile.  ``ties``: 45 rows of -1, 0 and 1 repeated to
+    448 rows, so duplicates straddle the spans' boundaries (64 rows at 7
+    blocks) and many scores tie, at the k-th too."""
+    rng = np.random.default_rng(11)
+    if kind == "ties":
+        q = rng.integers(-1, 2, size=(Q, 32)).astype(np.float32)
+        c = np.tile(rng.integers(-1, 2, size=(45, 32)), (10, 1))[:448]
+        c = c.astype(np.float32)
+        n_valid = 448
+    else:
+        q, c = _inputs(Q, 2500, 48, seed=12)
+        n_valid = 2300 if kind == "ragged" else 2500
+    js, ji = jops.topk_mips(jnp.asarray(q), jnp.asarray(c), k=k,
+                            n_valid=n_valid)
+    return q, c, n_valid, np.asarray(js), np.asarray(ji)
+
+
+@pytest.mark.parametrize("Q,k,blocks,kind", SCAN_CASES)
+def test_emulated_scan_matches_jax(Q, k, blocks, kind):
+    """The scan's selection as built (contiguous per-block spans of 32-row
+    tiles, per-warp running lists, the block's merge, pass 2 over one list
+    per block) over the plain version's scores equals the JAX kernel's
+    top-k; with integer rows (exact ties, duplicates across spans, ties at
+    the k-th score) bit for bit, the lower row first."""
+    q, c, n_valid, js, ji = _scan_case(Q, k, kind)
+    scores = ref.scores_ref(torch.from_numpy(q),
+                            torch.from_numpy(c[:n_valid])).numpy()
+    ts, ti = _emulate_scan(scores, k, blocks)
+    if kind == "ties":
+        top = -np.sort(-scores, axis=1)
+        assert (top[:, k - 1] == top[:, k]).any()     # a tie at the k-th
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(ts, js)
+    else:
+        _assert_same_topk(js, ji, torch.from_numpy(ts),
+                          torch.from_numpy(ti), 1e-5)
+        assert ti.max() < n_valid
+
+
+@pytest.mark.parametrize("score_dtype,Q,D,k,n_valid,carry,want", [
+    ("f32", 8, 768, 10, 8_841_823, False, True),     # a served batch
+    ("f32", 1, 768, 1, 16_385, False, True),
+    ("f32", 16, 768, 32, 100_000, False, True),
+    ("f32", 8, 896, 10, 100_000, False, True),       # 8 x 896 x 4 = 28 KB
+    ("f32", 3, 20, 7, 20_000, False, True),
+    ("f32", 17, 768, 10, 8_841_823, False, False),   # too many queries
+    ("f32", 100, 768, 100, 8_841_823, False, False),  # validator chunks
+    ("f32", 256, 768, 100, 65_536, False, False),    # materialized engine
+    ("f32", 60, 32, 100, 100_000, False, False),     # quickstart
+    ("bf16", 8, 768, 10, 8_841_823, False, False),
+    ("int8", 8, 768, 10, 8_841_823, False, False),
+    ("f32", 8, 768, 33, 8_841_823, False, False),    # k past the list
+    ("f32", 8, 768, 10, 8_841_823, True, False),     # a carry fold
+    ("f32", 8, 768, 10, 16_384, False, False),       # one window
+    ("f32", 16, 896, 10, 100_000, False, False),     # queries past 48 KB
+])
+def test_scan_dispatch_rule(score_dtype, Q, D, k, n_valid, carry, want):
+    """The scan takes an f32 call with no carry, at most 16 query rows
+    whose padded rows fit its 48 KB, k <= 32, over rows that the tiled
+    pass would cut into more than one window; every other call keeps the
+    tiled pass.  On CPU tensors neither runs: the plain version does."""
+    assert ops._takes_scan(score_dtype, Q, D, k, n_valid, carry=carry,
+                           cols=BN, max_cand=16384) is want
+    if want:
+        assert len(ops._windows(n_valid, k, 0, BN, 16384)) > 1
+    ops.reset_launches()
+    ops.topk_mips(torch.zeros(min(Q, 4), 8), torch.zeros(40, 8), k=3)
+    assert ops.scan_calls == 0 and ops.launches["f32"] == 0
