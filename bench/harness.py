@@ -5,6 +5,9 @@ the process loaded nothing of JAX.
 Everything a cell is made of is found by the names in ``BENCHMARK.json``:
 
 * ``bench/configs/<config>.json``: the configuration as it is run;
+* ``bench/models/<model_type>.py``: the trunk of the configuration's
+  ``model_type``: its checkpoint layout, reference, FLOP count and the
+  sizes the port is checked against (:mod:`bench.models`);
 * ``bench/traffic/<traffic>.json``: the mix, whose ``kind`` names the
   driver in ``bench/kinds/`` that runs it;
 * ``bench/limits/<workload>.json``: the limits of the numbers that
@@ -22,6 +25,8 @@ import os
 import subprocess
 import sys
 from typing import Dict, List, Optional
+
+from bench import models
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
@@ -138,6 +143,7 @@ def run_cell(bm: dict, cell: str, *, seed: int, seconds: float,
     w = workload(bm, cell)
     cfg = cfg if cfg is not None else config(w["config"])
     mix = mix if mix is not None else traffic(w["traffic"])
+    models.of(cfg)                  # a trunk without a module stops here
     out = driver(mix["kind"]).run(
         cfg=cfg, mix=mix, seed=seed, seconds=seconds, trace=trace,
         device=device, t_start=t_start, limits=limits(cell))

@@ -10,9 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from bench import weights
-
-_ACTS = {"gelu_pytorch_tanh": "gelu", "silu": "swiglu"}
+from bench import models, weights
 
 
 def port_config(cfg: dict):
@@ -23,20 +21,8 @@ def port_config(cfg: dict):
 
 def transformer_config(cfg: dict):
     tcfg = port_config(cfg)
-    s = weights.sizes(cfg)
-    bert = cfg["model_type"] == "bert"
-    want = {"n_layers": s["L"], "d_model": s["D"], "n_heads": s["H"],
-            "n_kv_heads": s["KV"], "head_dim": s["hd"], "d_ff": s["F"],
-            "vocab_size": s["V"], "act": _ACTS[cfg["hidden_act"]],
-            "norm_eps": cfg["layer_norm_eps"] if bert
-            else cfg["rms_norm_eps"],
-            "norm_style": "post" if bert else "pre",
-            "use_rope": not bert, "causal": not bert, "qkv_bias": True,
-            "max_position_embeddings": s["P"] if bert else 0,
-            "compute_dtype": weights.DTYPES[
-                cfg["retriever"]["compute_dtype"]]}
-    if not bert:
-        want["rope_theta"] = cfg["rope_theta"]
+    want = models.of(cfg).port_fields(cfg)
+    want["compute_dtype"] = weights.DTYPES[cfg["retriever"]["compute_dtype"]]
     got = {key: getattr(tcfg, key) for key in want}
     if got != want:
         bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}

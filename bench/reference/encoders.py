@@ -1,15 +1,16 @@
-"""Plain PyTorch encoders: the BERT trunk and the Qwen2 trunk as bi-encoders.
+"""Plain PyTorch bi-encoders: the math the trunks share, and
+:func:`encode`, which runs the trunk of the configuration's type
+(``bench/models/<model_type>.py``) and pools.
 
-They follow the published equations (BERT, arXiv:1810.04805; Qwen2,
-arXiv:2407.10671) with the departures that the configuration file lists
-under ``departures`` (the tanh GELU, the norm's epsilon, no segment
-embedding and a norm after the last layer instead of one on the
-embeddings, the pooling).  Everything runs in float32 with TF32 off;
-``precision="fp8"`` rounds both operands of every weight product to
-float8 e4m3 first (per-row scales for the activations, per-column scales
-for the weights), which is the control.  The weights are the flat
-``{key path: tensor}`` dict of :func:`bench.weights.draw`, read in the
-port's checkpoint layout; bf16 leaves are widened to float32.
+The trunks follow their published equations with the departures that the
+configuration file lists under ``departures``.  Everything runs in
+float32 with TF32 off; ``precision="fp8"`` rounds both operands of every
+weight product to float8 e4m3 first (per-row scales for the activations,
+per-column scales for the weights), which is the control.  The weights
+are the flat ``{key path: tensor}`` dict of :func:`bench.weights.draw`,
+read in the port's checkpoint layout; a trunk widens a layer's leaves to
+float32 when it reaches that layer, so a bf16 tree never has a float32
+copy of itself beside it.
 
 Sequences are encoded at their own lengths: sorted by length and batched
 with the batch's longest, so no sequence is padded to the maximum.
@@ -21,6 +22,8 @@ import math
 from typing import Dict, Sequence
 
 import torch
+
+from bench import models
 
 F8_MAX = 448.0
 
@@ -38,25 +41,11 @@ def _fp8(t: torch.Tensor, dim: int) -> torch.Tensor:
     return (t / scale).to(torch.float8_e4m3fn).float() * scale
 
 
-#: the leaves that are weights of products (stacked ``(L, in, out)``)
-MATRICES = ("dense_layers/attn/wq", "dense_layers/attn/wk",
-            "dense_layers/attn/wv", "dense_layers/attn/wo",
-            "dense_layers/mlp/w1/w", "dense_layers/mlp/w2/w",
-            "dense_layers/mlp/w1", "dense_layers/mlp/w3",
-            "dense_layers/mlp/w2")
-
-
-def _prepare(W: Dict[str, torch.Tensor], precision: str):
-    """The weights as the products read them, made once per call: float32,
+def _widen(leaf: torch.Tensor, precision: str) -> torch.Tensor:
+    """One layer's weight of a product as the product reads it: float32,
     and for the control rounded to fp8 with a scale per output column."""
-    if precision not in ("f32", "fp8"):
-        raise ValueError(f"unknown precision {precision!r}")
-    out = dict(W)
-    for key in MATRICES:
-        if key in W:
-            w = W[key].float()
-            out[key] = _fp8(w, -2) if precision == "fp8" else w
-    return out
+    w = leaf.float()
+    return _fp8(w, -2) if precision == "fp8" else w
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
@@ -106,57 +95,6 @@ def _rope(x, theta):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _trunk(cfg: dict, W: Dict[str, torch.Tensor], tok: torch.Tensor,
-           valid: torch.Tensor, precision: str) -> torch.Tensor:
-    """Last hidden states (B, n, D) of one padded batch."""
-    bert = cfg["model_type"] == "bert"
-    D, H = cfg["hidden_size"], cfg["num_attention_heads"]
-    KV = cfg.get("num_key_value_heads", H)
-    hd = D // H
-    B, n = tok.shape
-    x = W["embed/table"][tok].float()
-    if bert:
-        x = x + W["pos_embed/table"][:n].float()[None]
-        eps = cfg["layer_norm_eps"]
-    else:
-        eps = cfg["rms_norm_eps"]
-    a, m = "dense_layers/attn/", "dense_layers/mlp/"
-    for l in range(cfg["num_hidden_layers"]):
-        def w(key):
-            return W[key][l]
-
-        h = x if bert else _rmsnorm(x, w("dense_layers/attn_norm/scale"),
-                                    eps)
-        q = (_mm(h, w(a + "wq"), precision) + w(a + "bq").float()) \
-            .reshape(B, n, H, hd)
-        k = (_mm(h, w(a + "wk"), precision) + w(a + "bk").float()) \
-            .reshape(B, n, KV, hd)
-        v = (_mm(h, w(a + "wv"), precision) + w(a + "bv").float()) \
-            .reshape(B, n, KV, hd)
-        if not bert:
-            q, k = _rope(q, cfg["rope_theta"]), _rope(k, cfg["rope_theta"])
-        o = _mm(_attention(q, k, v, valid, causal=not bert), w(a + "wo"),
-                precision)
-        if bert:
-            x = _layernorm(x + o, w("dense_layers/attn_norm/scale"),
-                           w("dense_layers/attn_norm/bias"), eps)
-            f = _gelu_tanh(_mm(x, w(m + "w1/w"), precision)
-                           + w(m + "w1/b").float())
-            f = _mm(f, w(m + "w2/w"), precision) + w(m + "w2/b").float()
-            x = _layernorm(x + f, w("dense_layers/mlp_norm/scale"),
-                           w("dense_layers/mlp_norm/bias"), eps)
-        else:
-            x = x + o
-            h = _rmsnorm(x, w("dense_layers/mlp_norm/scale"), eps)
-            f = torch.nn.functional.silu(_mm(h, w(m + "w1"), precision)) \
-                * _mm(h, w(m + "w3"), precision)
-            x = x + _mm(f, w(m + "w2"), precision)
-    if bert:
-        return _layernorm(x, W["final_norm/scale"], W["final_norm/bias"],
-                          eps)
-    return _rmsnorm(x, W["final_norm/scale"], eps)
-
-
 @torch.inference_mode()
 def encode(cfg: dict, W: Dict[str, torch.Tensor],
            texts: Sequence[Sequence[int]], max_len: int, *,
@@ -164,9 +102,11 @@ def encode(cfg: dict, W: Dict[str, torch.Tensor],
            ) -> torch.Tensor:
     """(N, D) float32 unit embeddings of ``texts`` (each cut to
     ``max_len`` tokens) on the weights' device, in ``texts`` order."""
+    if precision not in ("f32", "fp8"):
+        raise ValueError(f"unknown precision {precision!r}")
     device = W["embed/table"].device
     pooling = cfg["retriever"]["pooling"]
-    W = _prepare(W, precision)
+    trunk = models.of(cfg).trunk
     lens = [max(1, min(len(t), max_len)) for t in texts]
     order = sorted(range(len(texts)), key=lambda i: lens[i])
     out = torch.empty(len(texts), cfg["hidden_size"], device=device)
@@ -186,7 +126,7 @@ def encode(cfg: dict, W: Dict[str, torch.Tensor],
             tok[r, :len(t)] = torch.tensor(t, dtype=torch.long)
             valid[r, :len(t)] = True
         tok, valid = tok.to(device), valid.to(device)
-        h = _trunk(cfg, W, tok, valid, precision)
+        h = trunk(cfg, W, tok, valid, precision)
         if pooling == "cls":
             e = h[:, 0]
         else:

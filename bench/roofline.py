@@ -6,14 +6,15 @@ its full 700 W; the run prints the card's power limit beside them.
 Model FLOPs count each multiply-add as 2 operations: the trunk's weight
 products and the attention's two products over real tokens (a causal
 trunk attends to ``n (n + 1) / 2`` key positions, a bidirectional one to
-``n ** 2``); norms, activations, softmax and pooling are not counted.
+``n ** 2``), as each trunk's module (``bench/models/``) counts them;
+norms, activations, softmax and pooling are not counted.
 """
 
 from __future__ import annotations
 
 from typing import Iterable
 
-from bench import weights
+from bench import models
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12          # outside the tensor cores
@@ -22,18 +23,12 @@ PEAK_HBM_BYTES = 3.35e12
 
 def encoder_flops(cfg: dict, n_tokens: int) -> float:
     """Forward FLOPs of the trunk over one sequence of ``n_tokens``."""
-    s = weights.sizes(cfg)
-    D, F, n = s["D"], s["F"], int(n_tokens)
-    Hd, KVd = s["H"] * s["hd"], s["KV"] * s["hd"]
-    proj = 2 * n * D * (Hd + 2 * KVd) + 2 * n * Hd * D
-    pairs = n * (n + 1) // 2 if cfg["model_type"] == "qwen2" else n * n
-    attn = 2 * 2 * pairs * Hd
-    mlp = 2 * n * D * F * (3 if cfg["hidden_act"] == "silu" else 2)
-    return float(s["L"] * (proj + attn + mlp))
+    return float(models.of(cfg).flops(cfg, n_tokens))
 
 
 def encode_flops(cfg: dict, lengths: Iterable[int]) -> float:
-    return float(sum(encoder_flops(cfg, n) for n in lengths))
+    flops = models.of(cfg).flops
+    return float(sum(flops(cfg, n) for n in lengths))
 
 
 def score_flops(n_queries: int, n_rows: int, dim: int) -> float:

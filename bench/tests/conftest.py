@@ -19,6 +19,10 @@ for _p in (ROOT, os.path.join(ROOT, "src")):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "chip: needs an NVIDIA GPU; skipped where there is none")
+    # a worker's small CPU cells gain nothing from more threads, and one
+    # pool per core in each of several workers slows the run tenfold
+    import torch
+    torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture

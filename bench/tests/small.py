@@ -1,32 +1,29 @@
 """The benchmark's cells at a size a CPU test holds, through the port's
-smoke-size trunks, run past the entry point's look for a chip."""
+smoke-size trunks (each trunk module's ``SMALL``), run past the entry
+point's look for a chip."""
 
 import copy
 import time
 from unittest import mock
 
-from bench import harness, port
-
-#: the port's smoke configs, in the configuration files' keys
-SMOKE = {
-    "dr-bert-base": dict(num_hidden_layers=2, hidden_size=64,
-                         num_attention_heads=4, intermediate_size=128,
-                         vocab_size=211, max_position_embeddings=64),
-    "qwen2-0.5b-dr": dict(num_hidden_layers=2, hidden_size=56,
-                          num_attention_heads=7, num_key_value_heads=1,
-                          intermediate_size=96, vocab_size=211,
-                          rope_theta=10000.0),
-}
+from bench import harness, models, port
 
 
 def small_cell(cell: str):
     """(cfg, mix) of ``cell`` at a size a CPU test holds."""
-    bm = harness.load_benchmark()
-    w = harness.workload(bm, cell)
-    cfg = copy.deepcopy(harness.config(w["config"]))
-    cfg.update(SMOKE[w["config"]])
+    w = harness.workload(harness.load_benchmark(), cell)
+    return small_config(w["config"]), small_mix(w["traffic"])
+
+
+def small_config(name: str) -> dict:
+    cfg = copy.deepcopy(harness.config(name))
+    cfg.update(models.of(cfg).SMALL)
     cfg["retriever"].update(q_max_len=16, p_max_len=48)
-    mix = copy.deepcopy(harness.traffic(w["traffic"]))
+    return cfg
+
+
+def small_mix(name: str) -> dict:
+    mix = copy.deepcopy(harness.traffic(name))
     mix["query_tokens"].update(median=6, max=16)
     if mix["kind"] == "validate":
         mix.update(n_queries=12, depth=24, k=24, batch_size=16,
@@ -35,19 +32,21 @@ def small_cell(cell: str):
     else:
         mix.update(corpus_rows=6000, row_block=1024, rate_qps=40,
                    check_sample=24)
-    return cfg, mix
+    return mix
 
 
 def run_small(cell: str, seed: int = 7, seconds: float = 1.0,
-              trace: bool = False) -> dict:
+              trace: bool = False, cfg=None) -> dict:
     """One run of ``cell`` at the small size on the CPU, past the entry
-    point's look for a chip."""
-    cfg, mix = small_cell(cell)
+    point's look for a chip; ``cfg`` replaces its small configuration."""
+    bm = harness.load_benchmark()
+    w = harness.workload(bm, cell)
+    cfg = small_config(w["config"]) if cfg is None else cfg
     with smoke_port():
-        return harness.run_cell(harness.load_benchmark(), cell, seed=seed,
-                                seconds=seconds, trace=trace, device="cpu",
+        return harness.run_cell(bm, cell, seed=seed, seconds=seconds,
+                                trace=trace, device="cpu",
                                 t_start=time.perf_counter(), cfg=cfg,
-                                mix=mix)
+                                mix=small_mix(w["traffic"]))
 
 
 def smoke_port():
