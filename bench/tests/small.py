@@ -16,9 +16,28 @@ def small_cell(cell: str):
 
 
 def small_config(name: str) -> dict:
-    cfg = copy.deepcopy(harness.config(name))
-    cfg.update(models.of(cfg).SMALL)
+    return shrink(harness.config(name))
+
+
+def shrink(cfg: dict) -> dict:
+    """A copy of ``cfg`` at its trunk module's ``SMALL`` sizes.  A depth
+    cut is carried to that size: published at ``SMALL``'s depth and cut
+    to one less, so a cut cell's small runs run a cut trunk."""
+    cfg = copy.deepcopy(cfg)
+    small = models.of(cfg).SMALL
+    cfg.update(small)
     cfg["retriever"].update(q_max_len=16, p_max_len=48)
+    if "num_hidden_layers" in cfg.get("published", {}):
+        from repro_torch.configs import registry
+        dense = registry.get(cfg["retriever"]["port_arch"]) \
+            .smoke_config().first_k_dense
+        depth = small["num_hidden_layers"]
+        assert depth > dense + 1, (
+            f"{models.path(cfg['model_type'])}'s SMALL holds "
+            f"num_hidden_layers = {depth}: a cut below it keeps no layer "
+            f"after the port's {dense} leading dense ones")
+        cfg["published"]["num_hidden_layers"] = depth
+        cfg["num_hidden_layers"] = depth - 1
     return cfg
 
 

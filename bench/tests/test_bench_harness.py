@@ -70,6 +70,14 @@ def test_cell_files_are_found_by_name(cell):
         assert harness.reader(m["name"])({}) is None
 
 
+@pytest.mark.parametrize("name", [c["name"] for c in BM["configs"]])
+def test_reduced_lists_the_keys_the_file_cuts(name):
+    """What a file cuts (its ``published``) is what ``reduced`` lists."""
+    entry = next(c for c in BM["configs"] if c["name"] == name)
+    cfg = harness.config(name)
+    assert sorted(cfg.get("published", {})) == sorted(entry["reduced"])
+
+
 @pytest.mark.parametrize("breakdown", [None, {"device_ops": [["k", 1.0]],
                                               "idle_gaps": []}])
 def test_result_line_has_the_contract_keys(breakdown):
